@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port's serving path.
+"""On-card smoke run of the PyTorch/CUDA port: the serving path and the
+per-chunk training path.
 
-Drives ``h3dgs_tpu_torch`` end to end on one NVIDIA GPU at the viewer's
-real size: a seeded synthetic hierarchy of 1,000,000 leaves (the wavy
+Drives ``h3dgs_tpu_torch`` end to end on one NVIDIA GPU at real sizes.
+Serving: a seeded synthetic hierarchy of 1,000,000 leaves (the wavy
 surface of ``scripts/bench_render.py``, SH degree 3), opened with
 ``HierarchyRenderer(budget=1 << 20)`` and rendered at 1920x1080 on a
 16-camera orbit for tau in {0, 3, 6, 15}, fresh-cut and cached-cut frames,
-then served over the network_gui wire protocol by ``serve()``.
+then served over the network_gui wire protocol by ``serve()``. Training: a
+synthetic chunk written with the port's own writers (1,000,000 points in
+points3D.bin on the same surface, 24 views at 1600x900 rendered from the
+ground truth, 16-bit inverse-depth PNGs, a 100,000-Gaussian scaffold with
+10,000 skybox rows and chunk bounds), trained through
+``h3dgs_tpu_torch.cli.train_single.main`` for 80 iterations (K1 + K2,
+densification, opacity reset) and 20 more with the fused SSIM loss (K3).
 
 Phases, each failing the run with its traceback:
   1. card name and power limit (nvidia-smi); fails without CUDA;
   2. build every kernel from ``h3dgs_tpu_torch/csrc`` (one nvcc each,
      started together);
   3. build and write the hierarchy, open the renderer;
-  4. the main path, with launch counts reset just before and read just
+  4. the serving path, with launch counts reset just before and read just
      after: renderer frames for every tau, then 3 socket requests through
      ``serve()`` whose replies are checked against ``renderer.render``;
   5. per-stage times with CUDA events (select, interpolate, project, bin,
      blend kernel, total) at each tau;
-  6. each kernel against its plain PyTorch version on one frame's inputs,
-     with times and the kernel's bound.
+  6. write the training chunk;
+  7. the training path, counted the same way: ``train_single.main`` for 80
+     iterations; loss finite and falling, artifacts written and read back,
+     locked skybox rows unchanged; step time and its per-stage split;
+  8. the fused-loss training path, counted: 20 iterations with
+     ``H3DGS_FUSED_SSIM=1``;
+  9. each kernel against its plain PyTorch version on one frame's or one
+     view's inputs, with times and the kernel's bound.
 The line before last is one JSON object with each kernel's numbers; the
 last line is the contract's ``{"ok": true, "device": ...}``.
 
 Run: python3 chip_smoke.py   (from the repository root, on a machine with
-one CUDA card; about 2-4 minutes, most of it the host-side hierarchy
-build)
+one CUDA card; a few minutes, most of it host-side scene building)
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+DEVICE = "cuda"
 N_LEAVES = 1_000_000
 WIDTH, HEIGHT = 1920, 1080
 TAUS = (0.0, 3.0, 6.0, 15.0)
@@ -63,6 +76,32 @@ BLEND_TOL = 1e-4
 BLEND_TOL_FLIPPED = 1e-3
 BLEND_MAX_FLIPPED_FRAC = 1e-3
 
+# Training chunk.
+TRAIN_POINTS = 1_000_000
+TRAIN_VIEWS = 24
+TRAIN_W, TRAIN_H = 1600, 900          # the reference's -1 resolution cap
+SCAFFOLD_N = 100_000
+SCAFFOLD_SKY = 10_000
+CHUNK_EXTENT = 3.0
+TRAIN_ITERS = 80
+FUSED_ITERS = 20
+TRAIN_FLAGS = ["--densify_from_iter", "20", "--densification_interval",
+               "30", "--opacity_reset_interval", "70", "--disable_viewer"]
+# K2: about 20 FP32 operations to recompute alpha per evaluated (entry,
+# pixel) pair up to the pixel's last contributing entry, and about 40 more
+# per contributing pair (T by division, d_alpha, the chain to means2d and
+# the conic, colors). Tolerance per output: atomicAdd order makes the
+# per-Gaussian sums non-deterministic.
+BWD_OPS_PER_PAIR = 20
+BWD_OPS_PER_CONTRIB = 40
+BWD_TOL_REL = 1e-3
+BWD_MIN_COSINE = 0.9999
+# K3: about 400 FP32 operations per channel pixel (8 blurred fields x 2
+# passes x 11 taps x 2, plus the map and the coefficients).
+SSIM_OPS_PER_VALUE = 400
+SSIM_LOSS_TOL = 1e-6
+SSIM_GRAD_TOL_REL = 1e-4
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -76,11 +115,10 @@ def card_line() -> str:
     return out[0]
 
 
-def make_scene(rng):
+def make_scene(rng, n: int):
     """The bench_render wavy surface: leaf spacing ~0.006 world units, so
     interior nodes merge neighbouring splats and tau moves the cut."""
     from h3dgs_tpu_torch.utils.sh import rgb_to_sh
-    n = N_LEAVES
     uv = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
     zs = (0.4 * np.sin(uv[:, 0] * 2.1) * np.cos(uv[:, 1] * 1.7)
           + 0.02 * rng.normal(size=n)).astype(np.float32)
@@ -328,20 +366,538 @@ def check_blend(args, height, width, launches):
             "library_ms": None}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    log(card_line())
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from h3dgs_tpu_torch.hierarchy.io import write_hier
-    from h3dgs_tpu_torch.hierarchy.tree import build_hierarchy
-    from h3dgs_tpu_torch.ops import kernels
-    from h3dgs_tpu_torch.scene.camera import look_at_camera
-    from h3dgs_tpu_torch.viewer.service import HierarchyRenderer, serve
+def train_cameras(look_at_camera):
+    """TRAIN_VIEWS views of the surface on a ring, radius 5, 1600x900."""
+    return [look_at_camera(eye=(5 * np.sin(a), -1.5, -5 * np.cos(a)),
+                           target=(0.0, 0.0, 0.0), fovx=1.2,
+                           width=TRAIN_W, height=TRAIN_H)
+            for a in np.linspace(0, 2 * np.pi, TRAIN_VIEWS, endpoint=False)]
 
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+def write_chunk(root: str, rng):
+    """A synthetic chunk in the reference's layout, written with the port's
+    own writers: COLMAP model (points3D.bin with TRAIN_POINTS jittered
+    ground-truth positions and colors), PNG views rendered from the
+    ground truth (surface and sky) with the port's rasterizer, 16-bit
+    inverse-depth PNGs with depth_params.json, a degree-1 scaffold
+    (point_cloud.ply + pc_info.txt) and the chunk bounds (center.txt /
+    extent.txt)."""
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.io import meta as meta_io
+    from h3dgs_tpu_torch.io.image import write_png
+    from h3dgs_tpu_torch.io.ply import write_gaussian_ply
+    from h3dgs_tpu_torch.ops.rasterize import rasterize
+    from h3dgs_tpu_torch.scene.camera import look_at_camera
+    from h3dgs_tpu_torch.utils.sh import SH_C0
+
+    xyz, shs, alpha, scaling, rotation = make_scene(rng, TRAIN_POINTS)
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "depths"))
+
+    # Scaffold (SH degree 1): skybox rows first, on a far sphere, locked in
+    # training and part of every photograph; then Gaussians in the ring
+    # load_scaffold selects (0.5 to 1.5 extents from the chunk center,
+    # Chebyshev on x and y), placed below the cameras and out of every
+    # view, as neighbouring chunks' Gaussians would be.
+    sky = SCAFFOLD_SKY
+    ring = SCAFFOLD_N - sky
+    theta = rng.uniform(0, 2 * np.pi, sky)
+    phi = np.arccos(1.0 - 1.4 * rng.random(sky))
+    sky_xyz = 40.0 * np.stack([np.cos(theta) * np.sin(phi), -np.cos(phi),
+                               np.sin(theta) * np.sin(phi)], axis=1)
+    ring_xyz = np.stack([rng.uniform(-0.45, 0.45, ring) * CHUNK_EXTENT,
+                         -rng.uniform(0.85, 1.45, ring) * CHUNK_EXTENT,
+                         rng.uniform(-0.45, 0.45, ring) * CHUNK_EXTENT],
+                        axis=1)
+    sc_xyz = np.concatenate([sky_xyz, ring_xyz]).astype(np.float32)
+    sc_rgb = np.concatenate([np.tile([0.7, 0.8, 0.95], (sky, 1)),
+                             rng.uniform(0.1, 0.9, (ring, 3))])
+    sc_sh = np.zeros((SCAFFOLD_N, 4, 3), np.float32)
+    sc_sh[:, 0] = (sc_rgb - 0.5) / SH_C0
+    sc_sh[:, 1:] = rng.normal(0.0, 0.02, (SCAFFOLD_N, 3, 3))
+    sc_opacity = np.full((SCAFFOLD_N, 1), 1.0, np.float32)   # logit
+    sc_scale = np.concatenate([np.full((sky, 3), np.log(1.5)),
+                               np.full((ring, 3), np.log(0.02))])
+    sc_rot = np.tile([1.0, 0.0, 0.0, 0.0], (SCAFFOLD_N, 1))
+
+    # Ground truth photographed: the surface and the sky.
+    sky_sh = np.zeros((sky, 16, 3), np.float32)
+    sky_sh[:, :4] = sc_sh[:sky]
+    gt = [torch.as_tensor(np.concatenate(a).astype(np.float32),
+                          device=DEVICE) for a in (
+        (xyz, sky_xyz), (np.exp(scaling), np.exp(sc_scale[:sky])),
+        (rotation, sc_rot[:sky]),
+        (alpha, np.full(sky, 1.0 / (1.0 + np.exp(-1.0)))), (shs, sky_sh))]
+    bg = torch.zeros(3, device=DEVICE)
+    cams, imgs, depth_params = {}, {}, {}
+    for i, cam in enumerate(train_cameras(look_at_camera)):
+        with torch.no_grad():
+            out = rasterize(*gt, cam, 3, bg)
+        img = (out["render"].clamp(0, 1) * 255 + 0.5).to(torch.uint8)
+        name = f"view_{i:03d}.png"
+        write_png(os.path.join(root, "images", name),
+                  img.permute(1, 2, 0).cpu().numpy(), level=1)
+        raw = (out["invdepth"][0] * 65536.0).clamp(0, 65535).to(torch.int32)
+        write_png(os.path.join(root, "depths", name),
+                  raw.cpu().numpy().astype(np.uint16), level=1)
+        depth_params[name[:-4]] = {"scale": 1.0, "offset": 0.0}
+        fx = cam.width / (2.0 * float(cam.tanfovx))
+        fy = cam.height / (2.0 * float(cam.tanfovy))
+        cams[i + 1] = colmap_io.ColmapCamera(
+            i + 1, "PINHOLE", cam.width, cam.height,
+            np.asarray([fx, fy, cam.width / 2.0, cam.height / 2.0]))
+        view = cam.view.numpy()
+        imgs[i + 1] = colmap_io.ColmapImage(
+            i + 1, colmap_io.rotmat2qvec(view[:3, :3]),
+            view[:3, 3].astype(np.float64), i + 1, name, np.zeros((0, 2)),
+            np.zeros(0, np.int64))
+    del gt
+    n = TRAIN_POINTS
+    colors = np.clip(shs[:, 0] * SH_C0 + 0.5, 0, 1)
+    pts = colmap_io.ColmapPoints3D(
+        ids=np.arange(1, n + 1, dtype=np.int64),
+        xyz=(xyz + rng.normal(0, 0.01, xyz.shape)).astype(np.float64),
+        rgb=(colors * 255 + 0.5).astype(np.uint8), error=np.zeros(n),
+        track_offsets=np.zeros(n + 1, np.int64),
+        track_image_ids=np.zeros(0, np.int32),
+        track_point2d_idxs=np.zeros(0, np.int32))
+    colmap_io.write_model_binary(sparse, cams, imgs, pts)
+    with open(os.path.join(sparse, "depth_params.json"), "w") as f:
+        json.dump(depth_params, f)
+
+    sc_dir = os.path.join(root, "scaffold")
+    write_gaussian_ply(os.path.join(sc_dir, "point_cloud.ply"), sc_xyz,
+                       sc_sh[:, :1], sc_sh[:, 1:], sc_opacity, sc_scale,
+                       sc_rot)
+    meta_io.write_pc_info(os.path.join(sc_dir, "pc_info.txt"), sky)
+    meta_io.write_vec(os.path.join(root, "center.txt"), [0.0, 0.0, 0.0])
+    meta_io.write_vec(os.path.join(root, "extent.txt"), [CHUNK_EXTENT] * 3)
+    return sc_dir
+
+
+def run_train_cli(argv, fused: bool = False):
+    """``train_single.main(argv)``, observed through ``train_flat``'s step
+    callback: per-step losses, a CUDA event after every step, the locked
+    rows before and after, the final state."""
+    from h3dgs_tpu_torch.cli import train_single
+    from h3dgs_tpu_torch.train import loop
+
+    rec = {"photo": [], "depth": [], "events": []}
+    orig = loop.train_flat
+
+    def observed(cfg, scene, **kw):
+        st = scene.state
+        locked = st.locked_rows_mask()
+        rec["locked0"] = {k: v[locked].clone()
+                          for k, v in st.trainable_dict().items()}
+        rec["n_locked"] = int(locked.sum())
+
+        def cb(it, out):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            rec["events"].append((it, ev))
+            rec["photo"].append(out.photo_loss)
+            rec["depth"].append(out.depth_loss)
+            rec["last"] = out
+
+        state, exposure = orig(cfg, scene, step_cb=cb, **kw)
+        rec["state"], rec["scene"] = state, scene
+        rec["locked1"] = {k: v[state.locked_rows_mask()].clone()
+                          for k, v in state.trainable_dict().items()}
+        return state, exposure
+
+    old_env = os.environ.get("H3DGS_FUSED_SSIM")
+    os.environ["H3DGS_FUSED_SSIM"] = "1" if fused else "0"
+    loop.train_flat = observed
+    try:
+        train_single.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        loop.train_flat = orig
+        if old_env is None:
+            os.environ.pop("H3DGS_FUSED_SSIM")
+        else:
+            os.environ["H3DGS_FUSED_SSIM"] = old_env
+    rec["photo"] = [float(x) for x in rec["photo"]]
+    rec["depth"] = [float(x) for x in rec["depth"]]
+    evs = rec.pop("events")
+    rec["step_ms"] = [a[1].elapsed_time(b[1]) for a, b in zip(evs, evs[1:])]
+    return rec
+
+
+def train_stage_times(state, batch, sh_degree: int, opt_cfg, reps: int = 5):
+    """Per-stage CUDA-event times of one train step on one view, following
+    train/step.py's order: project (with autograd), bin, K1, loss (with
+    exposure, depth and the photometric loss), backward (K2 + projection
+    backward), update (stats, sparse Adam, shrink). Mean of ``reps``.
+    Returns (stage ms dict, K2's inputs)."""
+    from h3dgs_tpu_torch.model import densify as densify_lib
+    from h3dgs_tpu_torch.ops import adam as adam_lib
+    from h3dgs_tpu_torch.ops.binning import bin_gaussians
+    from h3dgs_tpu_torch.ops.blend import blend_forward
+    from h3dgs_tpu_torch.ops.projection import (ProjectedGaussians,
+                                                project_gaussians)
+    from h3dgs_tpu_torch.ops.rasterize import blend_args
+    from h3dgs_tpu_torch.train.step import apply_exposure, decode_view
+    from h3dgs_tpu_torch.utils import losses, schedules
+
+    names = ("project", "bin", "blend_fwd K1", "loss",
+             "backward (K2 + projection)", "adam + stats + shrink")
+    acc = dict.fromkeys(names + ("total",), 0.0)
+    b = decode_view(batch)
+    cam = b.camera
+    opt = adam_lib.init(state.trainable_dict())
+    exposure = torch.eye(3, 4, device=state.device)
+    k2_inputs = None
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in state.trainable_dict().items()}
+        offset = torch.zeros((state.capacity, 2), device=state.device,
+                             requires_grad=True)
+        st = state.replace_trainable(params)
+        proj = project_gaussians(st.xyz, st.get_scaling(),
+                                 st.get_rotation(), st.get_opacity()[:, 0],
+                                 st.get_features(sh_degree), cam, sh_degree)
+        proj = proj._replace(means2d=proj.means2d + offset)
+        ev[1].record()
+        binned = bin_gaussians(ProjectedGaussians(
+            *(t.detach() for t in proj)), cam.height, cam.width)
+        ev[2].record()
+        args = blend_args(proj, binned)
+        color, invd, final_t, last = blend_forward(*args, cam.height,
+                                                   cam.width)
+        ev[3].record()
+        image = torch.clamp(apply_exposure(color, exposure), 0.0, 1.0)
+        image = image * b.alpha_mask
+        photo = losses.photometric_loss(image, b.gt_image,
+                                        opt_cfg.lambda_dssim)
+        depth = torch.mean(torch.abs(invd - b.invdepth) * b.depth_mask)
+        loss = photo + depth
+        ev[4].record()
+        inputs = list(params.values()) + [offset, color, invd, final_t]
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True,
+                                    materialize_grads=True)
+        ev[5].record()
+        with torch.no_grad():
+            g = dict(zip(params, grads[:len(params)]))
+            new = densify_lib.add_densification_stats(
+                state, grads[len(params)], proj.radius, proj.radius > 0)
+            relevant = (g["opacity"][:, 0] != 0) & state.alive
+            lrs = schedules.gaussian_lr_dict(opt_cfg, 50)
+            newp, _ = adam_lib.sparse_adam_update(state.trainable_dict(), g,
+                                                  opt, lrs, relevant)
+            new = densify_lib.shrink_big_gaussians(
+                new.replace_trainable(newp), 5.0, 0.02)
+        ev[6].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            acc[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+        acc["total"] += ev[0].elapsed_time(ev[6]) / reps
+        # The blend's own cotangents (d loss / d color, invd, final T).
+        cot = grads[len(params) + 1:]
+        k2_inputs = (tuple(a.detach() for a in args), color.detach(),
+                     invd.detach(), final_t.detach(), last,
+                     tuple(c.contiguous() for c in cot), cam.height,
+                     cam.width, image.detach(), b.gt_image)
+        del new, grads, proj
+    return acc, k2_inputs
+
+
+def profile_steps(state, batch, n_steps: int = 5):
+    """Device time of ``n_steps`` train steps on one view under
+    ``torch.profiler``: the busy share of the wall time and the kernels
+    that take the most device time. Prints "not measured" when the
+    profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from h3dgs_tpu_torch.config import OptimizationConfig
+    from h3dgs_tpu_torch.ops import adam as adam_lib
+    from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
+    from h3dgs_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(OptimizationConfig(), RasterizeConfig())
+    opt = adam_lib.init(state.trainable_dict())
+    exposure = torch.eye(3, 4, device=state.device).repeat(
+        int(batch.image_idx) + 1, 1, 1)
+    exp_opt = adam_lib.init({"exposure": exposure})
+    bg = torch.zeros(3, device=state.device)
+
+    def run():
+        return step(state, opt, exposure, exp_opt, batch, 50, bg, 5.0, 5.0,
+                    0)
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side rows only (kernels and copies): the operator rows repeat
+    # their kernels' time.
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if device_ms <= 0:
+        log("profile of the train step: no device activity recorded "
+            "(device busy share not measured)")
+        return
+    log(f"profile of {n_steps} train steps on one view: wall "
+        f"{wall_ms / n_steps:.3f} ms per step, device kernels "
+        f"{device_ms / n_steps:.3f} ms per step, device busy "
+        f"{100 * device_ms / wall_ms:.1f} % of the wall time")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:10]:
+        log(f"  {e.self_device_time_total / 1e3 / n_steps:8.3f} ms/step "
+            f"{e.count // n_steps:5d} calls/step  {e.key[:90]}")
+
+
+def _close_grads(got, want):
+    """(max |d| / max |want|, cosine) of two gradient tensors."""
+    g = got.double().reshape(-1)
+    w = want.double().reshape(-1)
+    scale = float(w.abs().max())
+    rel = float((g - w).abs().max()) / max(scale, 1e-30)
+    cos = float(torch.dot(g, w) / (g.norm() * w.norm()).clamp_min(1e-30))
+    return rel, cos, scale
+
+
+def check_blend_bwd(k2_inputs, launches):
+    """K2 against blend_backward_plain on one training view's inputs and
+    the loss's own cotangents; and on the deepest tile alone (T by
+    division over the longest walk, hazard H7)."""
+    from h3dgs_tpu_torch.ops.blend import (blend_backward,
+                                           blend_backward_plain, blend_plain)
+
+    args, color, invd, final_t, last, cot, h, w = k2_inputs[:8]
+    g_color, g_invd, g_t = cot
+
+    def kern():
+        return blend_backward(*args, color, invd, final_t, last, g_color,
+                              g_invd, g_t, h, w)
+
+    def plain():
+        return blend_backward_plain(*args, color, invd, final_t, g_color,
+                                    g_invd, g_t, h, w)
+
+    got = kern()
+    torch.cuda.synchronize()
+    *want, pairs, contrib = blend_backward_plain(
+        *args, color, invd, final_t, g_color, g_invd, g_t, h, w, last=last)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(("means2d", "conic", "rgb", "opacity",
+                           "inv_depth"), got, want):
+        rel, cos, scale = _close_grads(a, b)
+        log(f"blend_bwd vs plain, {name}: max |d| / max |g| {rel:.3e}, "
+            f"cosine {cos:.9f} (max |g| {scale:.3e})")
+        assert rel <= BWD_TOL_REL and cos >= BWD_MIN_COSINE, (name, rel, cos)
+        worst = max(worst, float((a - b).abs().max()))
+    nz_k, nz_p = got[3] != 0, want[3] != 0
+    tiny = (got[3].abs() < 1e-12) & (want[3].abs() < 1e-12)
+    mask_eq = bool(((nz_k == nz_p) | tiny).all())
+    log(f"blend_bwd: sparse-Adam mask rows (g_opacity != 0) kernel "
+        f"{int(nz_k.sum())}, plain {int(nz_p.sum())}; equal up to "
+        f"|g| < 1e-12: {mask_eq}")
+    assert mask_eq
+
+    # H7: the deepest tile alone (cotangents zero on every other pixel, so
+    # only its entries receive gradient), the kernel and the float32 plain
+    # version each against the plain version in float64.
+    tile_count = args[7]
+    deep = int(torch.argmax(tile_count))
+    tiles_x = -(-w // 16)
+    ty, tx = divmod(deep, tiles_x)
+    keep = torch.zeros((h, w), dtype=torch.bool, device=g_t.device)
+    keep[ty * 16:(ty + 1) * 16, tx * 16:(tx + 1) * 16] = True
+    masked = [torch.where(keep, c, torch.zeros_like(c)).contiguous()
+              for c in (g_color, g_invd, g_t)]
+    gk = blend_backward(*args, color, invd, final_t, last, *masked, h, w)
+    gp = blend_backward_plain(*args, color, invd, final_t, *masked, h, w)
+    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    fwd64 = blend_plain(*a64, h, w)
+    g64 = blend_backward_plain(*a64, *fwd64[:3], *(m.double()
+                                                   for m in masked), h, w)
+    for name, a, b, r in zip(("means2d", "conic", "rgb", "opacity",
+                              "inv_depth"), gk, gp, g64):
+        dk, _, scale = _close_grads(a, r)
+        dp, _, _ = _close_grads(b, r)
+        log(f"blend_bwd H7, deepest tile ({int(tile_count[deep])} entries), "
+            f"{name}: max |d| / max |g| against float64: kernel {dk:.3e}, "
+            f"float32 plain {dp:.3e}")
+
+    ms = time_ms(kern, 20)
+    plain_ms = time_ms(plain, 1)
+    gauss_idx, tile_start = args[5], args[6]
+    n_ref = int(torch.unique(gauss_idx).numel())
+    n_bytes = (80 * n_ref + 4 * gauss_idx.numel() + 4 * tile_start.numel()
+               + 28 * h * w)
+    t_ops = ((BWD_OPS_PER_PAIR * pairs + BWD_OPS_PER_CONTRIB * contrib)
+             / PEAK_FP32_FLOPS * 1e3)
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    log(f"blend_bwd at {w}x{h}: {gauss_idx.numel()} entries, {n_ref} "
+        f"Gaussians referenced, {pairs} evaluated pairs, {contrib} "
+        f"contributing; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{max(t_ops, t_bytes):.4f} ms (operations {t_ops:.4f}, bytes "
+        f"{t_bytes:.4f})")
+    return {"name": "blend_bwd", "route": "cuda",
+            "source": "h3dgs_tpu_torch/csrc/blend_bwd.cu",
+            "replaces": "h3dgs_tpu/ops/pallas_blend.py:555",
+            "launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def check_ssim(pred, target, launches):
+    """K3 against fused_photometric_plain on one training view's render
+    and its ground truth."""
+    from h3dgs_tpu_torch.ops.ssim import (fused_photometric_forward,
+                                          fused_photometric_plain)
+
+    pred = pred.contiguous()
+    target = target.contiguous()
+    loss, grad = fused_photometric_forward(pred, target, 0.2)
+    torch.cuda.synchronize()
+    want_loss, want_grad = fused_photometric_plain(pred, target, 0.2)
+    d_loss = abs(float(loss) - float(want_loss))
+    scale = float(want_grad.abs().max())
+    d_grad = float((grad - want_grad).abs().max())
+    ref_loss, ref_grad = fused_photometric_plain(pred.double(),
+                                                 target.double(), 0.2)
+    log(f"ssim against float64: loss |d| kernel "
+        f"{abs(float(loss) - float(ref_loss)):.3e}, float32 plain "
+        f"{abs(float(want_loss) - float(ref_loss)):.3e}; grad max |d| / max "
+        f"|g| kernel {_close_grads(grad, ref_grad)[0]:.3e}, float32 plain "
+        f"{_close_grads(want_grad, ref_grad)[0]:.3e}")
+    del ref_grad
+    log(f"ssim vs plain at {pred.shape[2]}x{pred.shape[1]}: loss "
+        f"{float(loss):.7f} vs {float(want_loss):.7f} (|d| {d_loss:.3e}, "
+        f"tolerance {SSIM_LOSS_TOL:g}); grad max |d| {d_grad:.3e} = "
+        f"{d_grad / max(scale, 1e-30):.3e} of max |g| (tolerance "
+        f"{SSIM_GRAD_TOL_REL:g})")
+    assert d_loss <= SSIM_LOSS_TOL, d_loss
+    assert d_grad <= SSIM_GRAD_TOL_REL * scale, (d_grad, scale)
+    ms = time_ms(lambda: fused_photometric_forward(pred, target, 0.2), 20)
+    plain_ms = time_ms(lambda: fused_photometric_plain(pred, target, 0.2),
+                       5)
+    values = pred.numel()
+    t_ops = SSIM_OPS_PER_VALUE * values / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 12 * values / PEAK_BYTES * 1e3
+    log(f"ssim: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{max(t_ops, t_bytes):.4f} ms (operations {t_ops:.4f}, bytes "
+        f"{t_bytes:.4f})")
+    return {"name": "ssim", "route": "cuda",
+            "source": "h3dgs_tpu_torch/csrc/ssim.cu",
+            "replaces": "h3dgs_tpu/ops/pallas_ssim.py:99",
+            "launches": launches, "max_abs_err": max(d_loss, d_grad),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def counted(fn, *args, **kw):
+    """Run one path with every launch count reset just before and read just
+    after. Returns (result, counts)."""
+    from h3dgs_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    result = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return result, dict(kernels.LAUNCHES)
+
+
+def training_phase(tmp: str, rng):
+    """Write the chunk, train through the CLI (plain loss, then fused), and
+    check the runs. Returns (counts per path, K2 inputs, a view's render
+    and target for K3)."""
+    from h3dgs_tpu_torch.config import OptimizationConfig
+    from h3dgs_tpu_torch.io.meta import read_exposure_json
+    from h3dgs_tpu_torch.io.ply import read_gaussian_ply
+    from h3dgs_tpu_torch.scene.loader import load_view
+    from h3dgs_tpu_torch.train.step import batch_to_device, encode_view
+
+    t0 = time.perf_counter()
+    src = os.path.join(tmp, "chunk")
+    sc_dir = write_chunk(src, rng)
+    log(f"training chunk written in {time.perf_counter() - t0:.1f} s: "
+        f"{TRAIN_POINTS} points, {TRAIN_VIEWS} views {TRAIN_W}x{TRAIN_H}, "
+        f"scaffold {SCAFFOLD_N} ({SCAFFOLD_SKY} skybox)")
+    base = ["-s", src, "--scaffold_file", sc_dir, "--bounds_file", src,
+            "--skybox_locked", "--depths", "depths", "--device",
+            DEVICE] + TRAIN_FLAGS
+
+    out = os.path.join(tmp, "model")
+    t0 = time.perf_counter()
+    rec, counts = counted(run_train_cli, base + [
+        "-m", out, "--iterations", str(TRAIN_ITERS)])
+    wall = time.perf_counter() - t0
+    photo = rec["photo"]
+    assert len(photo) == TRAIN_ITERS, len(photo)
+    assert all(math.isfinite(x) for x in photo + rec["depth"]), photo
+    first, last = np.mean(photo[:10]), np.mean(photo[-10:])
+    log(f"train_single ({TRAIN_ITERS} iterations, {wall:.1f} s wall incl. "
+        f"scene load): photo loss first 10 mean {first:.5f}, last 10 mean "
+        f"{last:.5f}; kernel launches {counts}")
+    assert last < first, (first, last)
+    assert counts["blend_fwd"] >= TRAIN_ITERS and \
+        counts["blend_bwd"] >= TRAIN_ITERS, counts
+    steady = rec["step_ms"][4:]
+    log(f"step time (CUDA events between step ends, iterations 6-"
+        f"{TRAIN_ITERS}, densify and reset steps included): median "
+        f"{np.median(steady):.3f} ms, min {np.min(steady):.3f}, max "
+        f"{np.max(steady):.3f}; {1e3 / np.median(steady):.2f} it/s")
+    state = rec["state"]
+    log(f"final alive {int(state.n_alive)} of capacity {state.capacity}")
+    for k in rec["locked0"]:
+        assert torch.equal(rec["locked0"][k], rec["locked1"][k]), k
+    log(f"locked skybox rows ({rec['n_locked']}) bit-equal to their "
+        f"initial values")
+    pc = os.path.join(out, "point_cloud", f"iteration_{TRAIN_ITERS}")
+    g = read_gaussian_ply(os.path.join(pc, "point_cloud.ply"), 3)
+    exp = read_exposure_json(os.path.join(out, "exposure.json"))
+    assert g["xyz"].shape[0] > 0 and np.isfinite(g["xyz"]).all()
+    assert len(exp) == TRAIN_VIEWS and all(np.isfinite(v).all()
+                                           for v in exp.values())
+    log(f"artifacts read back: point_cloud.ply {g['xyz'].shape[0]} rows, "
+        f"exposure.json {len(exp)} views")
+
+    # Per-stage split of one step on the final state.
+    scene = rec["scene"]
+    view = load_view(scene.info.train_cameras[0], -1)
+    batch = batch_to_device(encode_view(view), DEVICE)
+    stages, k2_inputs = train_stage_times(state, batch, 0,
+                                          OptimizationConfig())
+    log("train step stages (ms, CUDA events, mean of 5, one view): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    profile_steps(state, batch)
+    del rec, scene, state
+
+    out_f = os.path.join(tmp, "model_fused")
+    rec_f, counts_f = counted(run_train_cli, base + [
+        "-m", out_f, "--iterations", str(FUSED_ITERS)], fused=True)
+    assert all(math.isfinite(x) for x in rec_f["photo"] + rec_f["depth"])
+    log(f"train_single fused SSIM ({FUSED_ITERS} iterations): photo loss "
+        f"first {rec_f['photo'][0]:.5f}, last {rec_f['photo'][-1]:.5f}, "
+        f"median step {np.median(rec_f['step_ms'][4:]):.3f} ms; kernel "
+        f"launches {counts_f}")
+    assert counts_f["ssim"] >= FUSED_ITERS, counts_f
+    del rec_f
+    return {"train": counts, "fused": counts_f}, k2_inputs
+
+
+def build_kernels() -> None:
+    """Every kernel from its source, one nvcc each, started together; the
+    compiler's register / spill report."""
+    from h3dgs_tpu_torch.ops import kernels
+
     t0 = time.perf_counter()
     build_s = kernels.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
@@ -352,9 +908,25 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    log(card_line())
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from h3dgs_tpu_torch.hierarchy.io import write_hier
+    from h3dgs_tpu_torch.hierarchy.tree import build_hierarchy
+    from h3dgs_tpu_torch.scene.camera import look_at_camera
+    from h3dgs_tpu_torch.viewer.service import HierarchyRenderer, serve
+
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    build_kernels()
+
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    h = build_hierarchy(*make_scene(rng))
+    h = build_hierarchy(*make_scene(rng, N_LEAVES))
     log(f"hierarchy build: {N_LEAVES} leaves -> {h.n_nodes} nodes in "
         f"{time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
@@ -362,20 +934,16 @@ def main() -> int:
         t0 = time.perf_counter()
         write_hier(path, h)
         del h
-        renderer = HierarchyRenderer(path, budget=BUDGET, device="cuda")
+        renderer = HierarchyRenderer(path, budget=BUDGET, device=DEVICE)
         torch.cuda.synchronize()
         log(f"write + open hierarchy: {time.perf_counter() - t0:.1f} s")
 
     cams = orbit_cams(look_at_camera)
 
-    # --- the main path, counted ---
-    kernels.reset_launches()
-    frames, served = main_path(renderer, cams, look_at_camera, serve)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    log(f"main path: {frames} frames, kernel launches {launches}")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    # --- the serving path, counted ---
+    (frames, served), launches = counted(main_path, renderer, cams,
+                                         look_at_camera, serve)
+    log(f"serving path: {frames} frames, kernel launches {launches}")
     assert launches["blend_fwd"] >= frames, (launches, frames)
 
     for cam, img, verify in served:
@@ -400,10 +968,29 @@ def main() -> int:
                                             for k, v in acc.items())
             + f"; cut {cut:.0f}, entries {entries:.0f}, "
               f"max tile depth {depth:.0f}")
+    args, height, width = inputs
+    k1_row = check_blend(args, height, width, 0)
+    del renderer, inputs, args
+    torch.cuda.empty_cache()
+
+    # --- the training paths, counted ---
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts, k2_inputs = training_phase(tmp, rng)
+    steps = TRAIN_ITERS + FUSED_ITERS
+    total = {k: launches[k] + train_counts["train"][k]
+             + train_counts["fused"][k] for k in launches}
+    log(f"kernel launches over the three paths: {total} ({frames} frames, "
+        f"{steps} training steps)")
+    assert total["blend_fwd"] >= frames + steps, total
+    assert total["blend_bwd"] >= steps, total
+    assert total["ssim"] >= FUSED_ITERS, total
+    for name, n in total.items():
+        assert n > 0, f"kernel {name} was not launched on the main paths"
 
     # --- kernels against their plain versions (not counted) ---
-    args, height, width = inputs
-    rows = [check_blend(args, height, width, launches["blend_fwd"])]
+    k1_row["launches"] = total["blend_fwd"]
+    rows = [k1_row, check_blend_bwd(k2_inputs, total["blend_bwd"]),
+            check_ssim(k2_inputs[8], k2_inputs[9], total["ssim"])]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"peak device memory allocated: {peak_gb:.2f} GB")
 

@@ -9,6 +9,9 @@ modules of the reference it keeps as its own copy.
 Ported so far: the serving path (``.hier`` file -> ``HierarchyRenderer``
 -> budget fit -> cut -> LOD interpolation -> projection -> binning ->
 blend forward (CUDA kernel ``csrc/blend_fwd.cu``) -> uint8 frame ->
-``viewer.service.serve``). Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+``viewer.service.serve``) and per-chunk flat training
+(``cli.train_single`` -> ``train.loop.train_flat`` -> the train step, with
+the blend backward ``csrc/blend_bwd.cu`` and the fused SSIM loss
+``csrc/ssim.cu``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """

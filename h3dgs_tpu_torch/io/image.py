@@ -1,0 +1,172 @@
+"""Image files: a PNG codec of its own (zlib + numpy), and PIL for other
+formats where it is installed.
+
+The JAX package decodes with PIL and OpenCV; the port's loader reads every
+image through ``read_image``. PNG is read and written by this module: 8- and 16-bit
+samples, gray / gray+alpha / RGB / RGBA, non-interlaced, all five
+scanline filter types on read. Other formats
+(JPEG) go through PIL when it is importable; otherwise ``read_image``
+raises an error naming the file and its format.
+"""
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG color type -> samples per pixel (palette images are not read)
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa = np.abs(p - a)
+    pb = np.abs(p - b)
+    pc = np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(data: np.ndarray, height: int, width: int,
+              bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters. ``data``: the inflated stream,
+    ``height`` rows of 1 filter byte + width * bpp bytes. Returns
+    [height, width * bpp] uint8."""
+    rows = data.reshape(height, 1 + width * bpp)
+    ftype = rows[:, 0]
+    filt = rows[:, 1:].astype(np.int32)
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"bad PNG filter type {int(ftype.max())}")
+    out = np.zeros((height, width * bpp), np.int32)
+    if ftype.max(initial=0) <= 2:
+        # None / Sub / Up only: each row is one vector operation.
+        prev = np.zeros(width * bpp, np.int32)
+        for r in range(height):
+            row = filt[r]
+            if ftype[r] == 1:
+                row = np.cumsum(row.reshape(width, bpp), axis=0).reshape(-1)
+            elif ftype[r] == 2:
+                row = row + prev
+            prev = row & 255
+            out[r] = prev
+        return out.astype(np.uint8)
+    # Average / Paeth read the reconstructed left, up and up-left pixels:
+    # sweep anti-diagonals (row + column = t), all rows of a diagonal at
+    # once, each with its own filter type.
+    filt = filt.reshape(height, width, bpp)
+    out = out.reshape(height, width, bpp)
+    zero = np.zeros((1, bpp), np.int32)
+    for t in range(height + width - 1):
+        rs = np.arange(max(0, t - width + 1), min(height - 1, t) + 1)
+        xs = t - rs
+        has_l = (xs > 0)[:, None]
+        has_u = (rs > 0)[:, None]
+        a = np.where(has_l, out[rs, np.maximum(xs - 1, 0)], zero)
+        b = np.where(has_u, out[np.maximum(rs - 1, 0), xs], zero)
+        c = np.where(has_l & has_u,
+                     out[np.maximum(rs - 1, 0), np.maximum(xs - 1, 0)], zero)
+        ft = ftype[rs][:, None]
+        pred = np.select([ft == 1, ft == 2, ft == 3, ft == 4],
+                         [a, b, (a + b) >> 1, _paeth(a, b, c)], 0)
+        out[rs, xs] = (filt[rs, xs] + pred) & 255
+    return out.reshape(height, width * bpp).astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode a PNG file: [H, W] or [H, W, C] uint8 / uint16 (C = 2, 3 or
+    4: gray+alpha, RGB, RGBA)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    idat = []
+    ihdr = None
+    while pos < len(raw):
+        (length,) = struct.unpack_from(">I", raw, pos)
+        kind = raw[pos + 4:pos + 8]
+        body = raw[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    width, height, depth, ctype, _comp, _filter, interlace = ihdr
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNG is not supported")
+    if ctype not in _CHANNELS or depth not in (8, 16):
+        raise ValueError(f"{path}: PNG color type {ctype} at {depth} bits "
+                         "is not supported")
+    chans = _CHANNELS[ctype]
+    nbytes = depth // 8
+    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    px = _unfilter(data, height, width, chans * nbytes)
+    if depth == 16:
+        img = px.reshape(height, width * chans, 2).copy().view(">u2")
+        img = img.astype(np.uint16).reshape(height, width, chans)
+    else:
+        img = px.reshape(height, width, chans)
+    return img[..., 0] if img.shape[-1] == 1 else img
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xffffffff))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Encode [H, W] or [H, W, C] (C = 1..4) uint8 or uint16 as PNG
+    (filter type None on every row)."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"write_png: want uint8 or uint16, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    height, width, chans = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[chans]
+    depth = 8 * img.dtype.itemsize
+    px = img.astype(">u2") if depth == 16 else img
+    rows = np.ascontiguousarray(px).view(np.uint8).reshape(height, -1)
+    data = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height,
+                                            depth, ctype, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(data.tobytes(), level)))
+        f.write(_chunk(b"IEND", b""))
+
+
+def _format(head: bytes) -> str:
+    if head.startswith(b"\xff\xd8"):
+        return "JPEG"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if head[:2] == b"BM":
+        return "BMP"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WEBP"
+    return "unknown"
+
+
+def read_image(path: str) -> np.ndarray:
+    """Decode an image file to a numpy array ([H, W] or [H, W, C], uint8 or
+    uint16). PNG is decoded by this module; other formats need PIL."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+    if head.startswith(PNG_SIGNATURE):
+        return read_png(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{path}: {_format(head)} image, and only PNG is read without "
+            "PIL (install Pillow or convert the dataset to PNG)") from None
+    with Image.open(path) as im:
+        return np.asarray(im)

@@ -1,6 +1,6 @@
-"""Minimal PLY reader for 3DGS point clouds (no external deps).
+"""Minimal PLY reader and writer for 3DGS point clouds (no external deps).
 
-The port's own copy of the reading half of ``h3dgs_tpu/io/ply.py``. Reads
+The port's own copy of ``h3dgs_tpu/io/ply.py``. Reads and writes
 the attribute layout the reference ecosystem uses
 (upstream scene/gaussian_model.py:441-453,491-508): per-vertex
 float32 properties x,y,z, nx,ny,nz, f_dc_0..2, f_rest_0..3k, opacity,
@@ -10,7 +10,8 @@ reference's transpose-then-flatten save.
 """
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -100,3 +101,71 @@ def read_gaussian_ply(path: str, sh_degree: int):
                         axis=1).astype(np.float32)
     return dict(xyz=xyz, features_dc=f_dc, features_rest=rest,
                 opacity=opacity, scaling=scaling, rotation=rotation)
+
+
+def write_gaussian_ply(path: str, xyz, features_dc, features_rest, opacity,
+                       scaling, rotation):
+    """Write a trained-Gaussians PLY in the reference's layout."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    xyz = np.asarray(xyz, np.float32)
+    n = xyz.shape[0]
+    f_dc = np.asarray(features_dc, np.float32).transpose(0, 2, 1).reshape(n, -1)
+    f_rest = np.asarray(features_rest, np.float32).transpose(0, 2, 1).reshape(n, -1)
+    opacity = np.asarray(opacity, np.float32).reshape(n, 1)
+    scaling = np.asarray(scaling, np.float32)
+    rotation = np.asarray(rotation, np.float32)
+
+    names = (["x", "y", "z", "nx", "ny", "nz"]
+             + [f"f_dc_{i}" for i in range(f_dc.shape[1])]
+             + [f"f_rest_{i}" for i in range(f_rest.shape[1])]
+             + ["opacity"]
+             + [f"scale_{i}" for i in range(scaling.shape[1])]
+             + [f"rot_{i}" for i in range(rotation.shape[1])])
+    data = np.concatenate(
+        [xyz, np.zeros_like(xyz), f_dc, f_rest, opacity, scaling, rotation],
+        axis=1).astype(np.float32)
+
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {n}\n".encode())
+        for nm in names:
+            f.write(f"property float {nm}\n".encode())
+        f.write(b"end_header\n")
+        f.write(np.ascontiguousarray(data).tobytes())
+
+
+def read_points3d_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Read an input point cloud PLY -> (xyz [N,3] f32, rgb [N,3] f32 0..1)."""
+    v = read_ply_vertices(path)
+    xyz = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    if "red" in v:
+        rgb = np.stack([v["red"], v["green"], v["blue"]], axis=1)
+        rgb = rgb.astype(np.float32)
+        if rgb.max() > 1.0:
+            rgb /= 255.0
+    else:
+        rgb = np.full_like(xyz, 0.5)
+    return xyz, rgb
+
+
+def write_points3d_ply(path: str, xyz: np.ndarray, rgb: np.ndarray):
+    """Write an input point cloud (xyz + uchar rgb + zero normals)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    n = xyz.shape[0]
+    rec = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                    ("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4"),
+                    ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    data = np.zeros(n, dtype=rec)
+    data["x"], data["y"], data["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    rgb8 = np.clip(np.asarray(rgb) * (255.0 if np.asarray(rgb).max() <= 1.0 else 1.0),
+                   0, 255).astype(np.uint8)
+    data["red"], data["green"], data["blue"] = rgb8[:, 0], rgb8[:, 1], rgb8[:, 2]
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {n}\n".encode())
+        for nm, t in [("x", "float"), ("y", "float"), ("z", "float"),
+                      ("nx", "float"), ("ny", "float"), ("nz", "float"),
+                      ("red", "uchar"), ("green", "uchar"), ("blue", "uchar")]:
+            f.write(f"property {t} {nm}\n".encode())
+        f.write(b"end_header\n")
+        f.write(data.tobytes())

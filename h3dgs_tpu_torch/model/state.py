@@ -1,10 +1,13 @@
-"""GaussianState: the parameter store rendering reads.
+"""GaussianState: the fixed-capacity parameter store (counterpart of
+``h3dgs_tpu/model/state.py``).
 
-Counterpart of ``h3dgs_tpu/model/state.py`` for the serving path: the
-parameter fields, the ``alive`` mask and the static layout metadata. The
-densification statistics belong to the training slice and are not carried
-yet. Rows keep the reference's layouts (hierarchy post mode: skybox rows
-LAST, opacity activation |x|).
+Parameters live in tensors of a fixed capacity with an ``alive`` mask;
+densify / clone / split / prune write into free slots (``model/densify.py``)
+and capacity grows in buckets when a densify pass runs out of slots. Rows
+keep the reference's layouts:
+  * flat training (coarse / single): skybox rows FIRST, then scaffold rows,
+    then scene Gaussians;
+  * hierarchy post mode: skybox rows LAST, opacity activation |x|.
 """
 from __future__ import annotations
 
@@ -14,10 +17,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.adam import AdamState
+
 SH_REST = 15  # storage always holds degree-3 coefficients (1 + 15)
 
 TENSOR_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
                  "rotation", "opacity", "alive")
+STAT_FIELDS = ("max_radii2d", "xyz_gradient_accum", "denom")
+ALL_FIELDS = TENSOR_FIELDS + STAT_FIELDS
 
 
 @dataclasses.dataclass
@@ -30,6 +37,11 @@ class GaussianState:
     rotation: torch.Tensor       # [C, 4] (w, x, y, z), unnormalized
     opacity: torch.Tensor        # [C, 1] pre-activation
     alive: torch.Tensor          # [C] bool
+
+    # Densification statistics (reference gaussian_model.py:58-60).
+    max_radii2d: torch.Tensor         # [C] f32
+    xyz_gradient_accum: torch.Tensor  # [C] f32, max screen-grad norm
+    denom: torch.Tensor               # [C] f32
 
     max_sh_degree: int = 3
     opacity_abs: bool = False
@@ -45,9 +57,36 @@ class GaussianState:
     def device(self) -> torch.device:
         return self.xyz.device
 
+    @property
+    def n_alive(self) -> torch.Tensor:
+        return self.alive.sum()
+
     def to(self, device) -> "GaussianState":
         return dataclasses.replace(
-            self, **{k: getattr(self, k).to(device) for k in TENSOR_FIELDS})
+            self, **{k: getattr(self, k).to(device) for k in ALL_FIELDS})
+
+    # --- activations (gaussian_model.py:29-44) ---
+    def get_scaling(self) -> torch.Tensor:
+        return torch.exp(self.scaling)
+
+    def get_rotation(self) -> torch.Tensor:
+        n = torch.sqrt(torch.sum(self.rotation ** 2, -1, keepdim=True)
+                       + 1e-12)
+        return self.rotation / n
+
+    def get_opacity(self) -> torch.Tensor:
+        raw = (torch.abs(self.opacity) if self.opacity_abs
+               else torch.sigmoid(self.opacity))
+        return torch.where(self.alive[:, None], raw, torch.zeros_like(raw))
+
+    def get_features(self, degree: Optional[int] = None) -> torch.Tensor:
+        """[C, K, 3] SH coefficients, K = (degree+1)^2 (all 16 when
+        ``degree`` is None). The rest coefficients are cut before the
+        concatenation, so low degrees do not copy all of them."""
+        rest = self.features_rest
+        if degree is not None:
+            rest = rest[:, :(degree + 1) ** 2 - 1, :]
+        return torch.cat([self.features_dc, rest], dim=1)
 
     def trainable_dict(self):
         """The six optimized tensors, keyed like the reference param groups."""
@@ -59,6 +98,23 @@ class GaussianState:
             "scaling": self.scaling,
             "rotation": self.rotation,
         }
+
+    def replace_trainable(self, d) -> "GaussianState":
+        return dataclasses.replace(
+            self, xyz=d["xyz"], features_dc=d["f_dc"],
+            features_rest=d["f_rest"], opacity=d["opacity"],
+            scaling=d["scaling"], rotation=d["rotation"])
+
+    def locked_rows_mask(self) -> torch.Tensor:
+        """[C] bool: rows whose gradients are zeroed (the skybox lock:
+        leading rows in flat training, trailing rows with skybox_last)."""
+        idx = torch.arange(self.capacity, device=self.device)
+        if self.n_skybox <= 0:
+            return torch.zeros(self.capacity, dtype=torch.bool,
+                               device=self.device)
+        if self.skybox_last:
+            return idx >= self.capacity - self.n_skybox
+        return idx < self.n_skybox
 
 
 def empty_state(capacity: int, max_sh_degree: int = 3, device=None,
@@ -76,9 +132,38 @@ def empty_state(capacity: int, max_sh_degree: int = 3, device=None,
         rotation=rotation,
         opacity=full((capacity, 1), -10.0),
         alive=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        max_radii2d=full((capacity,), 0.0),
+        xyz_gradient_accum=full((capacity,), 0.0),
+        denom=full((capacity,), 0.0),
         max_sh_degree=max_sh_degree,
         **static_kw,
     )
+
+
+def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Re-allocate to a larger capacity, preserving all rows.
+
+    Padding rows get ``empty_state``'s defaults (dead, degenerate scale).
+    With skybox_last the padding goes before the trailing skybox block, so
+    every other row index is kept (``ops/adam.grow_rows`` with the same
+    tail keeps the moments aligned).
+    """
+    c = state.capacity
+    if new_capacity <= c:
+        raise ValueError(f"new capacity {new_capacity} <= current {c}")
+    grown = empty_state(new_capacity, state.max_sh_degree,
+                        device=state.device, opacity_abs=state.opacity_abs,
+                        n_skybox=state.n_skybox, n_scaffold=state.n_scaffold,
+                        skybox_last=state.skybox_last)
+    body = (c - state.n_skybox if state.skybox_last and state.n_skybox
+            else c)
+    for k in ALL_FIELDS:
+        old = getattr(state, k)
+        new = getattr(grown, k)
+        new[:body] = old[:body]
+        if body < c:
+            new[new_capacity - state.n_skybox:] = old[body:]
+    return grown
 
 
 def from_arrays(xyz, features_dc, features_rest, opacity, scaling, rotation,
@@ -123,22 +208,45 @@ def from_arrays(xyz, features_dc, features_rest, opacity, scaling, rotation,
     return st
 
 
+def default_opacity_init(n: int, value: float = 0.01) -> np.ndarray:
+    """Pre-activation opacity for fresh points (gaussian_model.py:199-202)."""
+    v = np.full((n, 1), value, np.float32)
+    return np.log(v / (np.float32(1.0) - v))
+
+
 def state_from_jax_arrays(d: dict, device=None, **static) -> GaussianState:
     """The port's state from the JAX state's arrays.
 
     ``d`` maps the reference ``GaussianState`` field names to
     ``np.asarray`` of each field; ``static`` carries its static metadata
     (``max_sh_degree``, ``opacity_abs``, ``n_skybox``, ``n_scaffold``,
-    ``skybox_last``). Rows are copied as they are, padding included, so
-    both packages compute the same thing on them. Fields the port does not
-    hold yet (the densification statistics) are not read.
+    ``skybox_last``). Rows are copied as they are, padding included. The
+    densification statistics are read when present and start at zero
+    otherwise.
     """
     missing = [k for k in TENSOR_FIELDS if k not in d]
     if missing:
         raise KeyError(f"state arrays lack fields {missing}")
     tensors = {}
-    for k in TENSOR_FIELDS:
+    cap = np.asarray(d["xyz"]).shape[0]
+    for k in ALL_FIELDS:
+        if k not in d:
+            tensors[k] = torch.zeros((cap,), dtype=torch.float32,
+                                     device=device)
+            continue
         a = np.asarray(d[k])
         a = a.astype(bool) if k == "alive" else a.astype(np.float32)
         tensors[k] = torch.as_tensor(np.ascontiguousarray(a), device=device)
     return GaussianState(**tensors, **static)
+
+
+def adam_from_jax_arrays(mu: dict, nu: dict, step, device=None) -> AdamState:
+    """The port's optimizer state from the JAX AdamState's arrays
+    (``np.asarray`` of each moment, keyed by group, and of the step), so
+    that state, optimizer and exposure all carry across."""
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+    return AdamState(mu={k: t(v) for k, v in mu.items()},
+                     nu={k: t(v) for k, v in nu.items()},
+                     step=torch.as_tensor(np.array(step, np.int32),
+                                          device=device))

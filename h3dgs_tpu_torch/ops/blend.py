@@ -1,4 +1,5 @@
-"""Blend forward (K1): the CUDA kernel's wrapper and its plain version.
+"""Blend forward (K1) and backward (K2): the CUDA kernels' wrappers and
+their plain versions.
 
 Front-to-back alpha blending of depth-sorted per-tile entries, with the
 reference blend contract (``h3dgs_tpu/ops/rasterize.py:blend_tiles``,
@@ -7,13 +8,19 @@ skipped when power > 0 or alpha < 1/255, and a pixel is done, without
 that entry contributing, once T * (1 - alpha) would drop below 1e-4.
 
 ``blend_forward`` launches ``csrc/blend_fwd.cu`` for CUDA tensors and
-runs ``blend_plain`` only for tensors on the CPU. ``blend_plain`` is the
-same function in plain torch; the CPU tests hold it against the JAX
-package and ``chip_smoke.py`` holds the kernel against it on the card.
+runs ``blend_plain`` only for tensors on the CPU; its autograd backward
+launches ``csrc/blend_bwd.cu`` (K2) for CUDA tensors and runs
+``blend_backward_plain`` for CPU tensors. The plain versions are the same
+functions in plain torch; the CPU tests hold them against the JAX package
+(``jax.vjp`` of the XLA blend for the backward) and ``chip_smoke.py``
+holds the kernels against them on the card.
 
 Outputs (before background): color [3,H,W], inverse depth [1,H,W], final
 transmittance [H,W], and each pixel's last contributing entry index
-[H,W] int32 (an index into the binned entry list, -1 for none).
+[H,W] int32 (an index into the binned entry list, -1 for none). The
+backward takes the cotangents of the first three and returns gradients
+per Gaussian: means2d [N,2], conic [N,3], rgb [N,3], opacity [N],
+inverse depth [N].
 """
 from __future__ import annotations
 
@@ -29,16 +36,17 @@ TRANSMITTANCE_EPS = 1e-4
 ALPHA_MAX = 0.99
 
 
-def _tile_pixel_grid(tiles_y: int, tiles_x: int, tile: int, device):
-    """Pixel coordinates per tile: ([T, P], [T, P]) f32, P = tile*tile,
-    pixel p of a tile at row p // tile, column p % tile."""
+def _tile_pixel_grid(tiles_y: int, tiles_x: int, tile: int, device,
+                     dtype=torch.float32):
+    """Pixel coordinates per tile: ([T, P], [T, P]), P = tile*tile, pixel p
+    of a tile at row p // tile, column p % tile."""
     ar = torch.arange(tile, device=device)
     ly = ar.repeat_interleave(tile)
     lx = ar.repeat(tile)
     ty = torch.arange(tiles_y, device=device).repeat_interleave(tiles_x)
     tx = torch.arange(tiles_x, device=device).repeat(tiles_y)
-    px = (tx[:, None] * tile + lx[None, :]).to(torch.float32)
-    py = (ty[:, None] * tile + ly[None, :]).to(torch.float32)
+    px = (tx[:, None] * tile + lx[None, :]).to(dtype)
+    py = (ty[:, None] * tile + ly[None, :]).to(dtype)
     return px, py
 
 
@@ -56,7 +64,8 @@ def blend_plain(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
                 tile_start, tile_count, height: int, width: int,
                 tile: int = TILE, chunk: int = 32,
                 count_evaluated: bool = False):
-    """Plain-torch blend, vectorised over tiles and pixels.
+    """Plain-torch blend, vectorised over tiles and pixels, in the inputs'
+    float type (float32 on the main path; float64 gives a reference).
 
     Walks every tile's entries in chunks of ``chunk``. Inside a chunk the
     transmittance is a sequential ``cumprod`` of (1 - alpha) started from
@@ -74,9 +83,10 @@ def blend_plain(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
     p = tile * tile
     inside = (px < width) & (py < height)
 
-    color = torch.zeros((n_tiles, p, 3), dtype=torch.float32, device=dev)
-    invd = torch.zeros((n_tiles, p), dtype=torch.float32, device=dev)
-    trans = torch.ones((n_tiles, p), dtype=torch.float32, device=dev)
+    dt = means2d.dtype
+    color = torch.zeros((n_tiles, p, 3), dtype=dt, device=dev)
+    invd = torch.zeros((n_tiles, p), dtype=dt, device=dev)
+    trans = torch.ones((n_tiles, p), dtype=dt, device=dev)
     last = torch.full((n_tiles, p), -1, dtype=torch.int64, device=dev)
     evaluated = torch.zeros((n_tiles, p), dtype=torch.int64, device=dev)
     # Pixels past the image edge start as done, like the kernel's.
@@ -148,9 +158,9 @@ _FLOAT_ARGS = (("means2d", 2), ("conic", 3), ("rgb", 3), ("opacity", 0),
 def _check_inputs(tensors: dict, height: int, width: int, tile: int):
     device = tensors["means2d"].device
     if device.type != "cuda":
-        raise ValueError(f"blend_fwd kernel needs CUDA tensors, got {device}")
+        raise ValueError(f"blend kernels need CUDA tensors, got {device}")
     if tile != TILE:
-        raise ValueError(f"blend_fwd kernel is built for {TILE}x{TILE} "
+        raise ValueError(f"blend kernels are built for {TILE}x{TILE} "
                          f"tiles, got {tile}")
     n = tensors["means2d"].shape[0]
     for name, cols in _FLOAT_ARGS:
@@ -200,6 +210,218 @@ def _launch_blend_fwd(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
     return color, invd, trans, last
 
 
+def _tile_image(img: torch.Tensor, tiles_y: int, tiles_x: int,
+                tile: int) -> torch.Tensor:
+    """[C, H, W] -> [T, P, C], zero past the image edge (the inverse of
+    ``_untile``)."""
+    c, h, w = img.shape
+    full = img.new_zeros((c, tiles_y * tile, tiles_x * tile))
+    full[:, :h, :w] = img
+    t = full.reshape(c, tiles_y, tile, tiles_x, tile)
+    return t.permute(1, 3, 2, 4, 0).reshape(tiles_y * tiles_x, tile * tile,
+                                             c)
+
+
+def blend_backward_plain(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
+                         tile_start, tile_count, color, invdepth, final_t,
+                         g_color, g_invd, g_t, height: int, width: int,
+                         tile: int = TILE, chunk: int = 32,
+                         last=None):
+    """Plain-torch blend backward: the closed form, vectorised over tiles,
+    in the inputs' float type.
+
+    Re-walks the forward of ``blend_plain`` chunk by chunk (same cumprod
+    transmittance, same termination) and, per entry k of a pixel,
+      d_alpha = T_k (g.a_k) - (g.C - P_k) / (1 - alpha_k)
+                - g_T T_fin / (1 - alpha_k),
+    with a_k = (r, g, b, invd), C the pixel's color and inverse depth
+    before background (``color``, ``invdepth``) and P_k the inclusive
+    prefix of (g.a_j) alpha_j T_j -- the suffix of K2 written as total
+    minus prefix, as ``pallas_blend.py:653-654`` writes it. d_alpha is
+    kept for contributing entries only and chained through exp(power)
+    where the raw alpha is below the 0.99 clamp. Per-entry values are
+    summed per Gaussian with ``index_add_`` (the "add" reduction).
+
+    Returns (d_means2d [N,2], d_conic [N,3], d_rgb [N,3], d_opacity [N],
+    d_inv_depth [N]). Given ``last`` (the forward's last-entry index
+    [H,W]), also return the numbers of (entry, pixel) pairs up to each
+    pixel's last contributing entry, and of contributing pairs -- the work
+    a bound on K2 counts.
+    """
+    dev = means2d.device
+    dt = means2d.dtype
+    n = means2d.shape[0]
+    tiles_y, tiles_x = num_tiles(height, width, tile)
+    n_tiles = tiles_y * tiles_x
+    px, py = _tile_pixel_grid(tiles_y, tiles_x, tile, dev, dt)
+    p = tile * tile
+    inside = (px < width) & (py < height)
+
+    g_px = _tile_image(g_color, tiles_y, tiles_x, tile)             # [T,P,3]
+    gd_px = _tile_image(g_invd.reshape(1, height, width), tiles_y, tiles_x,
+                        tile)[..., 0]
+    gt_px = _tile_image(g_t.reshape(1, height, width), tiles_y, tiles_x,
+                        tile)[..., 0]
+    tfin_px = _tile_image(final_t.reshape(1, height, width), tiles_y,
+                          tiles_x, tile)[..., 0]
+    total = ((g_px * _tile_image(color, tiles_y, tiles_x, tile)).sum(-1)
+             + gd_px * _tile_image(invdepth.reshape(1, height, width),
+                                   tiles_y, tiles_x, tile)[..., 0])
+    gt_tfin = gt_px * tfin_px                                       # [T,P]
+    count_pairs = last is not None
+    if count_pairs:
+        last_px = _tile_image(last.reshape(1, height, width).long(),
+                              tiles_y, tiles_x, tile)[..., 0]
+        last_px = torch.where(inside, last_px, torch.full_like(last_px, -1))
+
+    grads = torch.zeros((n, 10), dtype=dt, device=dev)
+    trans = torch.ones((n_tiles, p), dtype=dt, device=dev)
+    prefix = torch.zeros((n_tiles, p), dtype=dt, device=dev)
+    term = ~inside
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    contrib_pairs = torch.zeros((), dtype=torch.int64, device=dev)
+
+    d = gauss_idx.shape[0]
+    gidx = gauss_idx.long()
+    start = tile_start.long()
+    count = tile_count.long()
+    max_count = int(count.max()) if n_tiles and d else 0
+    for c0 in range(0, max_count, chunk):
+        ks = c0 + torch.arange(chunk, device=dev)
+        in_range = ks[None, :] < count[:, None]                     # [T,G]
+        entry = start[:, None] + ks[None, :]
+        gi = gidx[entry.clamp(0, d - 1)]
+
+        mean = means2d[gi]
+        con = conic[gi]
+        dx = px[:, None, :] - mean[..., 0:1]                        # [T,G,P]
+        dy = py[:, None, :] - mean[..., 1:2]
+        ca, cb, cc = con[..., 0:1], con[..., 1:2], con[..., 2:3]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        e = torch.exp(power)
+        alpha_raw = opacity[gi][..., None] * e
+        alpha = torch.clamp_max(alpha_raw, ALPHA_MAX)
+        ok = in_range[..., None] & (power <= 0.0) & (alpha >= ALPHA_EPS)
+        alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
+
+        t_seq = torch.cumprod(torch.cat([trans[:, None, :], 1.0 - alpha],
+                                        dim=1), dim=1)
+        t_excl = t_seq[:, :-1]
+        t_incl = t_seq[:, 1:]
+        live = (~term[:, None, :]) & (t_incl >= TRANSMITTANCE_EPS)
+        used = live & ok
+        contrib = torch.where(used, alpha * t_excl, torch.zeros_like(alpha))
+
+        col = rgb[gi]                                               # [T,G,3]
+        idg = inv_depth[gi]                                         # [T,G]
+        ga = (g_px[:, None, :, 0] * col[..., 0:1]
+              + g_px[:, None, :, 1] * col[..., 1:2]
+              + g_px[:, None, :, 2] * col[..., 2:3]
+              + gd_px[:, None, :] * idg[..., None])                 # [T,G,P]
+        q = contrib * ga
+        incl = prefix[:, None, :] + torch.cumsum(q, dim=1)
+        one_minus = 1.0 - alpha
+        d_alpha = (t_excl * ga - (total[:, None, :] - incl) / one_minus
+                   - gt_tfin[:, None, :] / one_minus)
+        d_alpha = torch.where(used & (alpha_raw < ALPHA_MAX), d_alpha,
+                              torch.zeros_like(d_alpha))
+        d_power = d_alpha * alpha_raw
+        per_entry = torch.stack([
+            (d_power * (ca * dx + cb * dy)).sum(-1),
+            (d_power * (cc * dy + cb * dx)).sum(-1),
+            (d_power * (-0.5 * dx * dx)).sum(-1),
+            (d_power * (-dx * dy)).sum(-1),
+            (d_power * (-0.5 * dy * dy)).sum(-1),
+            (contrib * g_px[:, None, :, 0]).sum(-1),
+            (contrib * g_px[:, None, :, 1]).sum(-1),
+            (contrib * g_px[:, None, :, 2]).sum(-1),
+            (d_alpha * e).sum(-1),
+            (contrib * gd_px[:, None, :]).sum(-1),
+        ], dim=-1)                                                  # [T,G,10]
+        sel = in_range.reshape(-1)
+        grads.index_add_(0, gi.reshape(-1)[sel],
+                         per_entry.reshape(-1, 10)[sel])
+
+        if count_pairs:
+            pairs += (in_range[..., None]
+                      & (entry[..., None] <= last_px[:, None, :])).sum()
+            contrib_pairs += used.sum()
+        prefix = prefix + q.sum(dim=1)
+        n_live = live.sum(dim=1)
+        trans = torch.gather(t_seq, 1, n_live[:, None, :])[:, 0]
+        term = term | (t_incl[:, -1] < TRANSMITTANCE_EPS)
+
+    out = (grads[:, 0:2], grads[:, 2:5], grads[:, 5:8], grads[:, 8],
+           grads[:, 9])
+    if count_pairs:
+        return out + (int(pairs), int(contrib_pairs))
+    return out
+
+
+def _launch_blend_bwd(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
+                      tile_start, final_t, last, g_color, g_invd, g_t,
+                      height: int, width: int):
+    lib = kernels.load("blend_bwd")
+    fn = lib.blend_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 7)
+    dev = means2d.device
+    tiles_y, tiles_x = num_tiles(height, width, TILE)
+    grads = torch.zeros((means2d.shape[0], 10), dtype=torch.float32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(means2d.data_ptr(), conic.data_ptr(), rgb.data_ptr(),
+                    opacity.data_ptr(), inv_depth.data_ptr(),
+                    gauss_idx.data_ptr(), tile_start.data_ptr(),
+                    tiles_y * tiles_x, tiles_x, height, width,
+                    final_t.data_ptr(), last.data_ptr(), g_color.data_ptr(),
+                    g_invd.data_ptr(), g_t.data_ptr(), grads.data_ptr(),
+                    stream)
+    kernels.check("blend_bwd", status)
+    kernels.LAUNCHES["blend_bwd"] += 1
+    return (grads[:, 0:2], grads[:, 2:5], grads[:, 5:8], grads[:, 8],
+            grads[:, 9])
+
+
+def _check_pixels(tensors: dict, device):
+    for name, (t, shape, dtype) in tensors.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def blend_backward(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
+                   tile_start, tile_count, color, invdepth, final_t, last,
+                   g_color, g_invd, g_t, height: int, width: int):
+    """Blend backward (K2). CPU tensors run ``blend_backward_plain``; CUDA
+    tensors launch the kernel or raise. Returns per-Gaussian gradients
+    (means2d [N,2], conic [N,3], rgb [N,3], opacity [N], inv_depth [N])."""
+    args = (means2d, conic, rgb, opacity, inv_depth, gauss_idx, tile_start,
+            tile_count)
+    if all(t.device.type == "cpu" for t in args):
+        return blend_backward_plain(*args, color, invdepth, final_t,
+                                    g_color, g_invd, g_t, height, width)
+    _check_inputs(dict(zip(
+        ("means2d", "conic", "rgb", "opacity", "inv_depth", "gauss_idx",
+         "tile_start", "tile_count"), args)), height, width, TILE)
+    hw = (height, width)
+    _check_pixels({
+        "final_t": (final_t, hw, torch.float32),
+        "last": (last, hw, torch.int32),
+        "g_color": (g_color, (3,) + hw, torch.float32),
+        "g_invd": (g_invd, (1,) + hw, torch.float32),
+        "g_t": (g_t, hw, torch.float32)}, means2d.device)
+    return _launch_blend_bwd(means2d, conic, rgb, opacity, inv_depth,
+                             gauss_idx, tile_start, final_t, last, g_color,
+                             g_invd, g_t, height, width)
+
+
 class _BlendForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, means2d, conic, rgb, opacity, inv_depth, gauss_idx,
@@ -215,13 +437,17 @@ class _BlendForward(torch.autograd.Function):
                 height, width, TILE)
             out = _launch_blend_fwd(*args, height, width)
         ctx.mark_non_differentiable(out[3])
+        ctx.save_for_backward(*args, *out)
+        ctx.size = (height, width)
         return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the blend backward is kernel K2 (h3dgs_tpu/ops/pallas_blend.py:"
-            "_bwd_kernel); it is ported with the training slice")
+    def backward(ctx, g_color, g_invd, g_t, _g_last):
+        saved = ctx.saved_tensors
+        grads = blend_backward(*saved, g_color.contiguous(),
+                               g_invd.contiguous(), g_t.contiguous(),
+                               *ctx.size)
+        return grads + (None,) * 5
 
 
 def blend_forward(means2d, conic, rgb, opacity, inv_depth, gauss_idx,

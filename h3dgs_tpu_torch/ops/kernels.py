@@ -29,10 +29,17 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # kernel name -> its source file under csrc/
 SOURCES: Dict[str, str] = {
     "blend_fwd": "blend_fwd.cu",
+    "blend_bwd": "blend_bwd.cu",
+    "ssim": "ssim.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Per-kernel additions. The fused SSIM loss is built without multiply-add
+# contraction, so each product and sum rounds as in its plain version
+# (separate PyTorch kernels): the SSIM map's variance terms cancel, and
+# the loss is held to its plain version within 1e-6.
+EXTRA_FLAGS: Dict[str, list] = {"ssim": ["-fmad=false"]}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -59,8 +66,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, SOURCES[name])
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -78,8 +86,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, SOURCES[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o",
+               tmp, os.path.join(CSRC_DIR, SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())

@@ -1,8 +1,12 @@
-"""Tiled rasterization: project -> bin -> blend (K1) -> background.
+"""Tiled differentiable rasterization: project -> bin -> blend (K1, its
+backward K2) -> background.
 
-Counterpart of ``h3dgs_tpu/ops/rasterize.py:rasterize`` and the serving
-half of ``blend_auto``, with the same output keys. Forward only: the
-blend's backward (kernel K2) comes with the training slice.
+Counterpart of ``h3dgs_tpu/ops/rasterize.py:rasterize`` and ``blend_auto``,
+with the same output keys. Gradients flow by autograd to ``means3d``,
+``scales``, ``quats``, ``opacities``, ``shs`` and ``means2d_offset`` (the
+screen-space densification signal, ``h3dgs_tpu/ops/rasterize.py:467-470``)
+through the projection and the blend's ``torch.autograd.Function``.
+Binning produces indices only and runs on detached tensors.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ class RasterizeConfig(NamedTuple):
 
 def blend_args(proj: ProjectedGaussians, binned: BinnedGaussians):
     """The blend kernel's inputs: contiguous per-Gaussian columns (inverse
-    depth included) and the binned entry list."""
+    depth 1 / max(depth, 1e-6) included, differentiable in depth) and the
+    binned entry list."""
     inv_depth = 1.0 / torch.clamp_min(proj.depth, 1e-6)
     return (proj.means2d.contiguous(), proj.conic.contiguous(),
             proj.rgb.contiguous(), proj.opacity.contiguous(),
@@ -49,7 +54,9 @@ def blend_auto(proj: ProjectedGaussians, height: int, width: int, bg_color,
     if config.tile != TILE:
         raise ValueError(f"the blend kernel uses {TILE}x{TILE} tiles, "
                          f"got tile={config.tile}")
-    binned = bin_gaussians(proj, height, width, config.tile)
+    binned = bin_gaussians(
+        ProjectedGaussians(*(t.detach() for t in proj)), height, width,
+        config.tile)
     color, invdepth, final_t, _last = blend_forward(
         *blend_args(proj, binned), height, width)
     bg = torch.as_tensor(bg_color, dtype=color.dtype, device=color.device)

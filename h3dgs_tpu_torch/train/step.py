@@ -1,8 +1,101 @@
-"""Training-step helpers the serving path shares (counterpart of part of
-``h3dgs_tpu/train/step.py``; the training step itself is a later slice)."""
+"""The per-view training step of flat-model training (counterpart of
+``h3dgs_tpu/train/step.py``).
+
+One step: render -> photometric (+ optional inverse-depth) loss -> one
+``torch.autograd.grad`` through the projection and the blend (K1 forward,
+K2 backward) -> skybox gradient locking -> densification stats from the
+screen-space offset gradient -> masked sparse Adam -> exposure Adam ->
+big-Gaussian shrink, in the reference's order. It is a plain eager
+function: the updates run under ``torch.no_grad()`` and return new
+tensors. ``StepOutput`` drops the JAX step's entry-budget counters
+(``n_truncated``, ``n_raw``, ``n_bwd_quanta``): they size the TPU's static
+buffers, which the port does not have. Densify / prune and the opacity reset run on their own
+intervals (``densify_step``, ``reset_opacity_step``).
+"""
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
+
+from ..config import OptimizationConfig
+from ..model import densify as densify_lib
+from ..model.state import GaussianState
+from ..ops import adam as adam_lib
+from ..ops.rasterize import RasterizeConfig, rasterize
+from ..scene.camera import Camera
+from ..utils import losses as loss_lib
+from ..utils import schedules
+
+
+class ViewBatch(NamedTuple):
+    """One training view's data."""
+    camera: Camera
+    gt_image: torch.Tensor       # [3, H, W], already alpha-masked
+    alpha_mask: torch.Tensor     # [1, H, W]
+    invdepth: torch.Tensor       # [1, H, W] scaled mono inverse depth (or 0s)
+    depth_mask: torch.Tensor     # [1, H, W]
+    depth_reliable: torch.Tensor  # [] bool
+    image_idx: torch.Tensor      # [] int64 (exposure row)
+
+
+def encode_view(batch: ViewBatch) -> ViewBatch:
+    """Compact host arrays for the transfer: images and masks as uint8
+    (the PNG sources are 8-bit), inverse depth as f16."""
+    def q8(x):
+        return np.clip(np.asarray(x) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+    return batch._replace(
+        gt_image=q8(batch.gt_image),
+        alpha_mask=q8(batch.alpha_mask),
+        depth_mask=q8(batch.depth_mask),
+        invdepth=np.asarray(batch.invdepth, np.float16))
+
+
+def decode_view(batch: ViewBatch) -> ViewBatch:
+    """On-device inverse of ``encode_view``; float32 batches pass
+    through."""
+    def dec(x):
+        return (x.to(torch.float32) / 255.0 if x.dtype == torch.uint8
+                else x)
+
+    return batch._replace(
+        gt_image=dec(batch.gt_image),
+        alpha_mask=dec(batch.alpha_mask),
+        depth_mask=dec(batch.depth_mask),
+        invdepth=batch.invdepth.to(torch.float32))
+
+
+def batch_to_device(batch: ViewBatch, device) -> ViewBatch:
+    """Host (numpy) ViewBatch -> tensors on ``device``. On a CUDA device
+    the arrays go through pinned memory with ``non_blocking=True``."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+
+    def move(x):
+        t = torch.as_tensor(np.asarray(x)).contiguous()
+        if pin:
+            t = t.pin_memory()
+        return t.to(device, non_blocking=pin)
+
+    return ViewBatch(
+        camera=batch.camera.to(device),
+        gt_image=move(batch.gt_image), alpha_mask=move(batch.alpha_mask),
+        invdepth=move(batch.invdepth), depth_mask=move(batch.depth_mask),
+        depth_reliable=move(np.asarray(batch.depth_reliable, bool)),
+        image_idx=move(np.asarray(batch.image_idx, np.int64)))
+
+
+class StepOutput(NamedTuple):
+    state: GaussianState
+    opt: adam_lib.AdamState
+    exposure: torch.Tensor
+    exposure_opt: adam_lib.AdamState
+    photo_loss: torch.Tensor
+    depth_loss: torch.Tensor
+    n_visible: torch.Tensor
+    n_duplicates: torch.Tensor
 
 
 def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
@@ -11,3 +104,155 @@ def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
     m = exposure[:3, :3]
     out = (image[:, None] * m[:, :, None, None]).sum(dim=0)
     return out + exposure[:3, 3][:, None, None]
+
+
+def render_for_training(state: GaussianState, camera: Camera,
+                        sh_degree: int, bg: torch.Tensor,
+                        raster_cfg: RasterizeConfig,
+                        means2d_offset: Optional[torch.Tensor] = None,
+                        exposure: Optional[torch.Tensor] = None):
+    out = rasterize(
+        state.xyz, state.get_scaling(), state.get_rotation(),
+        state.get_opacity()[:, 0], state.get_features(sh_degree),
+        camera, sh_degree, bg,
+        means2d_offset=means2d_offset, config=raster_cfg)
+    image = out["render"]
+    if exposure is not None:
+        image = apply_exposure(image, exposure)
+    out["render"] = torch.clamp(image, 0.0, 1.0)
+    return out
+
+
+def make_train_step(opt_cfg: OptimizationConfig, raster_cfg: RasterizeConfig,
+                    use_depth_loss: bool = True, use_exposure: bool = True,
+                    skybox_locked: bool = True, freeze_xyz: bool = False,
+                    shrink_threshold: float = 0.02,
+                    shrink_protect_scaffold: bool = True,
+                    skip_shrink: bool = False):
+    """Build the train step for a given config.
+
+    freeze_xyz / shrink_threshold=0.1 / use_depth_loss=False /
+    use_exposure=False reproduce the coarse trainer's variant.
+    """
+
+    def step(state: GaussianState, opt: adam_lib.AdamState,
+             exposure: torch.Tensor, exposure_opt: adam_lib.AdamState,
+             batch: ViewBatch, iteration, bg: torch.Tensor,
+             spatial_lr_scale, cameras_extent,
+             sh_degree: int) -> StepOutput:
+        batch = decode_view(batch)
+        it = float(iteration)
+        names = list(state.trainable_dict())
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in state.trainable_dict().items()}
+        offset = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                             device=state.device, requires_grad=True)
+        exp_row = (exposure[batch.image_idx].detach().requires_grad_(True)
+                   if use_exposure else None)
+        depth_w = schedules.expon_lr(
+            it, opt_cfg.depth_l1_weight_init, opt_cfg.depth_l1_weight_final,
+            max_steps=opt_cfg.iterations)
+
+        with torch.enable_grad():
+            st = state.replace_trainable(params)
+            out = render_for_training(st, batch.camera, sh_degree, bg,
+                                      raster_cfg, means2d_offset=offset,
+                                      exposure=exp_row)
+            image = out["render"] * batch.alpha_mask
+            photo = loss_lib.photometric_loss(image, batch.gt_image,
+                                              opt_cfg.lambda_dssim)
+            if use_depth_loss:
+                d_l1 = torch.mean(torch.abs(out["invdepth"] - batch.invdepth)
+                                  * batch.depth_mask)
+                depth = torch.where(batch.depth_reliable & (depth_w > 0),
+                                    depth_w * d_l1, torch.zeros_like(d_l1))
+            else:
+                depth = torch.zeros((), device=state.device)
+            inputs = [params[k] for k in names] + [offset]
+            if use_exposure:
+                inputs.append(exp_row)
+            grads = torch.autograd.grad(photo + depth, inputs,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+
+        with torch.no_grad():
+            g_params = dict(zip(names, grads[:len(names)]))
+            g_offset = grads[len(names)]
+
+            # --- skybox gradient locking (train_single.py:162-168) ---
+            if skybox_locked:
+                locked = state.locked_rows_mask()
+                for k in g_params:
+                    m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
+                    g_params[k] = torch.where(m, torch.zeros_like(
+                        g_params[k]), g_params[k])
+
+            # --- densification stats (screen-space positional grads) ---
+            radii = out["radii"]
+            visible = out["visibility_filter"]
+            new_state = densify_lib.add_densification_stats(
+                state, g_offset, radii, visible)
+
+            # --- sparse Adam on rows with a nonzero opacity gradient ---
+            relevant = (g_params["opacity"][:, 0] != 0.0) & state.alive
+            lrs = schedules.gaussian_lr_dict(opt_cfg, it,
+                                             freeze_xyz=freeze_xyz)
+            lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
+            new_params, new_opt = adam_lib.sparse_adam_update(
+                state.trainable_dict(), g_params, opt, lrs, relevant)
+            new_state = new_state.replace_trainable(new_params)
+
+            # --- exposure Adam (dense, torch defaults: eps 1e-8) ---
+            if use_exposure:
+                exp_lr = schedules.expon_lr(
+                    it, opt_cfg.exposure_lr_init, opt_cfg.exposure_lr_final,
+                    lr_delay_steps=opt_cfg.exposure_lr_delay_steps,
+                    lr_delay_mult=opt_cfg.exposure_lr_delay_mult,
+                    max_steps=opt_cfg.iterations)
+                g_exp_full = torch.zeros_like(exposure)
+                g_exp_full[batch.image_idx] = grads[len(names) + 1]
+                all_rows = torch.ones(exposure.shape[0], dtype=torch.bool,
+                                      device=exposure.device)
+                new_exp, exposure_opt = adam_lib.sparse_adam_update(
+                    {"exposure": exposure}, {"exposure": g_exp_full},
+                    exposure_opt, {"exposure": exp_lr}, all_rows, eps=1e-8)
+                exposure = new_exp["exposure"]
+
+            # --- every-iteration big-Gaussian shrink ---
+            if not skip_shrink:
+                new_state = densify_lib.shrink_big_gaussians(
+                    new_state, cameras_extent, shrink_threshold,
+                    protect_scaffold=shrink_protect_scaffold)
+
+        return StepOutput(
+            state=new_state, opt=new_opt, exposure=exposure,
+            exposure_opt=exposure_opt, photo_loss=photo.detach(),
+            depth_loss=depth.detach(), n_visible=visible.sum(),
+            n_duplicates=out["n_duplicates"])
+
+    return step
+
+
+def densify_step(state: GaussianState, opt: adam_lib.AdamState,
+                 generator: torch.Generator, max_grad: float,
+                 min_opacity: float, extent, percent_dense: float,
+                 eps: Optional[torch.Tensor] = None):
+    """Densify + prune with the optimizer state of recycled slots reset.
+    Returns (state, opt, (n_cloned, n_split, n_pruned, n_dropped))."""
+    with torch.no_grad():
+        res = densify_lib.densify_and_prune(
+            state, generator, max_grad, min_opacity, extent, percent_dense,
+            eps=eps)
+        new_opt = adam_lib.reset_rows(opt, res.touched_rows)
+    return res.state, new_opt, (res.n_cloned, res.n_split, res.n_pruned,
+                                res.n_dropped)
+
+
+def reset_opacity_step(state: GaussianState, opt: adam_lib.AdamState):
+    """Opacity reset + zeroed opacity moments (gaussian_model.py:510-514)."""
+    with torch.no_grad():
+        new_state = densify_lib.reset_opacity(state)
+        new_opt = adam_lib.reset_rows(
+            opt, torch.ones(state.capacity, dtype=torch.bool,
+                            device=state.device), keys=["opacity"])
+    return new_state, new_opt

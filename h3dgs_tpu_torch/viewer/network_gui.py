@@ -5,17 +5,20 @@ A non-blocking TCP listener; messages are 4-byte-little-endian-length-
 prefixed JSON carrying camera matrices and toggles; replies are raw RGB
 bytes followed by a length-prefixed verify string. The protocol's
 matrices arrive ROW-vector style (transposed relative to the column-vector
-Camera) with Y/Z columns flipped. The training-loop ``poll`` comes with
-the training slice.
+Camera) with Y/Z columns flipped. ``poll`` serves the viewer from the
+training loop.
 """
 from __future__ import annotations
 
 import json
 import math
 import socket
+import time
+import traceback
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..scene.camera import Camera, camera_from_arrays
 
@@ -30,6 +33,7 @@ class NetworkGUI:
         self.listener.settimeout(0)
         self.conn: Optional[socket.socket] = None
         self.model_path = model_path
+        self.keep_alive = False
 
     def close(self) -> None:
         for s in (self.conn, self.listener):
@@ -51,6 +55,22 @@ class NetworkGUI:
     def _read_msg(self) -> dict:
         """Blocking read of one length-prefixed JSON message."""
         n = int.from_bytes(self._recv_exact(4), "little")
+        return json.loads(self._recv_exact(n).decode("utf-8"))
+
+    def _try_read_msg(self):
+        """One message, or None if none is pending. Only the first byte is
+        probed without blocking; the rest of a started message is read
+        with a timeout, so the length-prefixed stream never desyncs."""
+        self.conn.settimeout(0)
+        try:
+            first = self.conn.recv(1)
+        except (BlockingIOError, socket.timeout):
+            return None
+        finally:
+            self.conn.settimeout(10.0)
+        if not first:
+            raise ConnectionResetError
+        n = int.from_bytes(first + self._recv_exact(3), "little")
         return json.loads(self._recv_exact(n).decode("utf-8"))
 
     def _recv_exact(self, n: int) -> bytes:
@@ -88,3 +108,59 @@ class NetworkGUI:
             view_t, full_proj_t, np.linalg.inv(view_t)[:3, 3],
             np.float32(math.tan(m["fov_x"] * 0.5)),
             np.float32(math.tan(m["fov_y"] * 0.5)), h, w)
+
+    def poll(self, state, sh_degree: int, raster_cfg, bg) -> None:
+        """Serve any pending viewer request; called from the train loop.
+
+        While the viewer has training paused (train=false), this blocks
+        in this call serving frames, as the reference's receive loop does. Frames
+        are rendered with ``render_for_training`` under ``no_grad``."""
+        if self.conn is None:
+            self._try_connect()
+        paused = False
+        while self.conn is not None:
+            try:
+                msg = self._try_read_msg()
+                if msg is None:
+                    if paused:
+                        time.sleep(0.005)
+                        continue
+                    return
+                cam = self._camera_from_msg(msg)
+                payload = None
+                if cam is not None:
+                    from ..train.step import render_for_training
+                    with torch.no_grad():
+                        out = render_for_training(state, cam, sh_degree, bg,
+                                                  raster_cfg)
+                    img = (out["render"].clamp(0, 1) * 255).to(torch.uint8)
+                    payload = memoryview(
+                        img.permute(1, 2, 0).contiguous().cpu().numpy()
+                        .tobytes())
+                self._send(payload)
+                self.keep_alive = bool(msg.get("keep_alive", False))
+                if cam is None and not self.keep_alive:
+                    return
+                paused = not bool(msg.get("train", True))
+                if not paused:
+                    return
+            except Exception:
+                traceback.print_exc()
+                try:
+                    self.conn.close()
+                except OSError:
+                    pass
+                self.conn = None
+
+
+def maybe_viewer(args) -> Optional[NetworkGUI]:
+    """The training viewer's listener, unless ``--disable_viewer``; a port
+    that cannot be bound is reported and training goes on without it."""
+    if getattr(args, "disable_viewer", False):
+        return None
+    try:
+        return NetworkGUI(args.ip, args.port,
+                          getattr(args, "model_path", "") or "")
+    except OSError as e:
+        print(f"viewer listener unavailable ({e}); continuing without")
+        return None

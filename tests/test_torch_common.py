@@ -133,16 +133,32 @@ def test_unported_options_raise(tmp_path):
                       "--device", "cpu"])
 
 
-def test_blend_backward_raises():
-    """Forward-only slice: differentiating the blend names kernel K2."""
-    from h3dgs_tpu_torch.ops.blend import blend_forward
+def test_blend_backward_runs():
+    """The blend is differentiable: on CPU tensors its autograd backward
+    runs K2's plain version and equals ``blend_backward_plain``."""
+    from h3dgs_tpu_torch.ops.blend import blend_backward_plain, blend_forward
 
-    means2d = torch.tensor([[8.0, 8.0]], requires_grad=True)
-    args = (means2d, torch.tensor([[0.1, 0.0, 0.1]]),
-            torch.tensor([[0.5, 0.5, 0.5]]), torch.tensor([0.8]),
-            torch.tensor([0.5]), torch.tensor([0], dtype=torch.int32),
-            torch.tensor([0], dtype=torch.int32),
-            torch.tensor([1], dtype=torch.int32))
-    color, _, _, _ = blend_forward(*args, 16, 16)
-    with pytest.raises(NotImplementedError, match="K2"):
-        color.sum().backward()
+    means2d = torch.tensor([[8.0, 8.0], [5.0, 9.0]], requires_grad=True)
+    conic = torch.tensor([[0.1, 0.0, 0.1], [0.2, 0.05, 0.15]],
+                         requires_grad=True)
+    rgb = torch.tensor([[0.5, 0.5, 0.5], [0.9, 0.1, 0.3]],
+                       requires_grad=True)
+    opac = torch.tensor([0.8, 0.6], requires_grad=True)
+    invd = torch.tensor([0.5, 0.25], requires_grad=True)
+    idx = (torch.tensor([1, 0], dtype=torch.int32),
+           torch.tensor([0], dtype=torch.int32),
+           torch.tensor([2], dtype=torch.int32))
+    color, inv, final_t, _ = blend_forward(means2d, conic, rgb, opac, invd,
+                                           *idx, 16, 16)
+    g = torch.linspace(-1.0, 1.0, 3 * 256).reshape(3, 16, 16)
+    gd = torch.full((1, 16, 16), 0.3)
+    gt = torch.full((16, 16), -0.2)
+    ((color * g).sum() + (inv * gd).sum() + (final_t * gt).sum()).backward()
+    want = blend_backward_plain(means2d.detach(), conic.detach(),
+                                rgb.detach(), opac.detach(), invd.detach(),
+                                *idx, color.detach(), inv.detach(),
+                                final_t.detach(), g, gd, gt, 16, 16)
+    for t, w in zip((means2d, conic, rgb, opac, invd), want):
+        assert float(t.grad.abs().max()) > 0
+        np.testing.assert_allclose(np_(t.grad), np_(w), rtol=1e-6,
+                                   atol=1e-7)
