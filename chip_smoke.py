@@ -32,7 +32,9 @@ Phases, each failing the run with its traceback:
   8. the fused-loss training path, counted: 20 iterations with
      ``H3DGS_FUSED_SSIM=1``;
   9. each kernel against its plain PyTorch version on one frame's or one
-     view's inputs, with times and the kernel's bound.
+     view's inputs, with times and the kernel's bound; for the blend
+     kernels also the wrapper's tile sort and the pack pre-pass on their
+     own, and the times of the kernels they replaced.
 The line before last is one JSON object with each kernel's numbers; the
 last line is the contract's ``{"ok": true, "device": ...}``.
 
@@ -75,6 +77,11 @@ BLEND_OPS_PER_PAIR = 20
 BLEND_TOL = 1e-4
 BLEND_TOL_FLIPPED = 1e-3
 BLEND_MAX_FLIPPED_FRAC = 1e-3
+# Times of the blend kernels before their redesign, as PERF.md records them
+# (section 6, the flat-training slice's final run: the same phases of this
+# script on an NVIDIA H100 80GB HBM3 at 700.00 W).
+K1_EARLIER_MS = 1.1617
+K2_EARLIER_MS = 5.4961
 
 # Training chunk.
 TRAIN_POINTS = 1_000_000
@@ -318,7 +325,9 @@ def time_ms(fn, reps: int) -> float:
 
 def check_blend(args, height, width, launches):
     """K1 against blend_plain on one frame's binned inputs."""
-    from h3dgs_tpu_torch.ops.blend import blend_forward, blend_plain
+    from h3dgs_tpu_torch.ops.blend import (_launch_blend_fwd, blend_forward,
+                                           blend_plain, pack_rows,
+                                           pack_rows_plain, tile_order)
 
     kern = blend_forward(*args, height, width)
     torch.cuda.synchronize()
@@ -338,7 +347,22 @@ def check_blend(args, height, width, launches):
     assert max_err <= BLEND_TOL_FLIPPED, max_err
     assert last_eq >= 1.0 - BLEND_MAX_FLIPPED_FRAC, last_eq
 
+    # The wrapper as the main path calls it (tile sort, pack pre-pass,
+    # blend), then its parts on their own.
     ms = time_ms(lambda: blend_forward(*args, height, width), 20)
+    order = tile_order(args[7])
+    order_ms = time_ms(lambda: tile_order(args[7]), 20)
+    launch_ms = time_ms(lambda: _launch_blend_fwd(*args, order, height,
+                                                  width), 20)
+    rows = pack_rows(*args[:5])
+    assert torch.equal(rows, pack_rows_plain(*args[:5])), "pack pre-pass"
+    pack_ms = time_ms(lambda: pack_rows(*args[:5]), 20)
+    pack_plain_ms = time_ms(lambda: pack_rows_plain(*args[:5]), 5)
+    log(f"blend_fwd wrapper {ms:.4f} ms = tile sort {order_ms:.4f} + launch "
+        f"{launch_ms:.4f} (of which the pack pre-pass of {rows.shape[0]} "
+        f"rows {pack_ms:.4f}; equal to torch.cat, which takes "
+        f"{pack_plain_ms:.4f}); before the redesign {K1_EARLIER_MS} ms")
+    del rows
     plain_ms = time_ms(lambda: blend_plain(*args, height, width), 2)
 
     # Bound: evaluated (entry, pixel) pairs of this data (each pixel up to
@@ -363,7 +387,9 @@ def check_blend(args, height, width, launches):
             "launches": launches, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": None, "earlier_ms": K1_EARLIER_MS,
+            "launch_ms": launch_ms, "tile_sort_ms": order_ms,
+            "pack_ms": pack_ms}
 
 
 def train_cameras(look_at_camera):
@@ -673,8 +699,10 @@ def check_blend_bwd(k2_inputs, launches):
     """K2 against blend_backward_plain on one training view's inputs and
     the loss's own cotangents; and on the deepest tile alone (T by
     division over the longest walk, hazard H7)."""
-    from h3dgs_tpu_torch.ops.blend import (blend_backward,
-                                           blend_backward_plain, blend_plain)
+    from h3dgs_tpu_torch.ops.blend import (_blend_backward_cuda,
+                                           _launch_blend_fwd, blend_backward,
+                                           blend_backward_plain, blend_plain,
+                                           tile_order)
 
     args, color, invd, final_t, last, cot, h, w = k2_inputs[:8]
     g_color, g_invd, g_t = cot
@@ -687,19 +715,36 @@ def check_blend_bwd(k2_inputs, launches):
         return blend_backward_plain(*args, color, invd, final_t, g_color,
                                     g_invd, g_t, h, w)
 
+    # As autograd calls it on the main path: on the rows K1's launch
+    # packed and the tile order K1 used, both saved by the forward.
+    order = tile_order(args[7])
+    _, rows = _launch_blend_fwd(*args, order, h, w)
+
+    def kern_saved():
+        return _blend_backward_cuda(None, rows, args[5], args[6], order,
+                                    final_t, last, g_color, g_invd, g_t, h,
+                                    w)
+
     got = kern()
+    got_saved = kern_saved()
     torch.cuda.synchronize()
     *want, pairs, contrib = blend_backward_plain(
         *args, color, invd, final_t, g_color, g_invd, g_t, h, w, last=last)
     torch.cuda.synchronize()
     worst = 0.0
-    for name, a, b in zip(("means2d", "conic", "rgb", "opacity",
-                           "inv_depth"), got, want):
+    for name, a, a_saved, b in zip(("means2d", "conic", "rgb", "opacity",
+                                    "inv_depth"), got, got_saved, want):
         rel, cos, scale = _close_grads(a, b)
+        rel_s, cos_s, _ = _close_grads(a_saved, b)
         log(f"blend_bwd vs plain, {name}: max |d| / max |g| {rel:.3e}, "
-            f"cosine {cos:.9f} (max |g| {scale:.3e})")
+            f"cosine {cos:.9f} (max |g| {scale:.3e}); on the forward's "
+            f"saved rows {rel_s:.3e}, {cos_s:.9f}")
         assert rel <= BWD_TOL_REL and cos >= BWD_MIN_COSINE, (name, rel, cos)
-        worst = max(worst, float((a - b).abs().max()))
+        assert rel_s <= BWD_TOL_REL and cos_s >= BWD_MIN_COSINE, (
+            name, rel_s, cos_s)
+        worst = max(worst, float((a - b).abs().max()),
+                    float((a_saved - b).abs().max()))
+    del got_saved
     nz_k, nz_p = got[3] != 0, want[3] != 0
     tiny = (got[3].abs() < 1e-12) & (want[3].abs() < 1e-12)
     mask_eq = bool(((nz_k == nz_p) | tiny).all())
@@ -725,15 +770,25 @@ def check_blend_bwd(k2_inputs, launches):
     fwd64 = blend_plain(*a64, h, w)
     g64 = blend_backward_plain(*a64, *fwd64[:3], *(m.double()
                                                    for m in masked), h, w)
+    worst_k = worst_p = 0.0
     for name, a, b, r in zip(("means2d", "conic", "rgb", "opacity",
                               "inv_depth"), gk, gp, g64):
         dk, _, scale = _close_grads(a, r)
         dp, _, _ = _close_grads(b, r)
+        worst_k, worst_p = max(worst_k, dk), max(worst_p, dp)
         log(f"blend_bwd H7, deepest tile ({int(tile_count[deep])} entries), "
             f"{name}: max |d| / max |g| against float64: kernel {dk:.3e}, "
             f"float32 plain {dp:.3e}")
+    # T by division must not drift: the kernel's worst output stays no
+    # further from float64 than the float32 plain version's worst.
+    assert worst_k <= worst_p, (worst_k, worst_p)
 
-    ms = time_ms(kern, 20)
+    ms = time_ms(kern_saved, 20)
+    wrapper_ms = time_ms(kern, 20)
+    log(f"blend_bwd on the forward's saved rows and tile order (the main "
+        f"path) {ms:.4f} ms; the standalone wrapper (tile sort and pack "
+        f"pre-pass of its own) {wrapper_ms:.4f} ms; before the redesign "
+        f"{K2_EARLIER_MS} ms")
     plain_ms = time_ms(plain, 1)
     gauss_idx, tile_start = args[5], args[6]
     n_ref = int(torch.unique(gauss_idx).numel())
@@ -753,7 +808,8 @@ def check_blend_bwd(k2_inputs, launches):
             "launches": launches, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": None, "earlier_ms": K2_EARLIER_MS,
+            "wrapper_ms": wrapper_ms}
 
 
 def check_ssim(pred, target, launches):
@@ -903,10 +959,18 @@ def build_kernels() -> None:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in build_s.items())})")
     for name in kernels.SOURCES:
+        what = name
         with open(kernels.library_path(name) + ".log") as f:
             for line in f:
+                if "Function properties for" in line:
+                    what = (f"{name} (pack pre-pass)"
+                            if "pack_kernel" in line else name)
                 if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+                    log(f"  ptxas {what}: {line.strip()}")
+    for name in ("blend_fwd", "blend_bwd"):
+        blocks, threads = kernels.occupancy(name)
+        log(f"  occupancy {name}: {blocks} resident blocks per SM of "
+            f"{threads} threads ({blocks * threads // 32} of 64 warps)")
 
 
 def main() -> int:

@@ -15,6 +15,21 @@ functions in plain torch; the CPU tests hold them against the JAX package
 (``jax.vjp`` of the XLA blend for the backward) and ``chip_smoke.py``
 holds the kernels against them on the card.
 
+Both kernels stage an entry as its Gaussian's **packed row**: 12 float32
+(``mx, my, opacity, inv_depth | ca, cb, cc, 0 | r, g, b, 0``), three
+16-byte vectors, so that an entry is three asynchronous 16-byte copies and
+the alpha test reads the first two vectors. The rows are written by a
+pre-pass of K1's launch (``pack_kernel`` in ``csrc/blend_common.cuh``) into
+a ``[N, 12]`` buffer that the wrapper allocates and saves for K2; a pack
+made of torch ops (``torch.cat``) was measured and dropped, and so was
+gathering the rows from the five columns inside the kernels
+(``PERF.md``). The wrapper also prepares, once per forward and saved for
+the backward, the **tile order** (``tile_order``): the tiles sorted
+deepest first, in which the blocks take them. K2 accumulates into
+``[N, 12]`` gradient rows of the same layout, which ``unpack_grads``
+slices into the five gradients. ``cull_plain`` is the plain form of the
+kernels' per-footprint cull, for the tests that prove it safe.
+
 Outputs (before background): color [3,H,W], inverse depth [1,H,W], final
 transmittance [H,W], and each pixel's last contributing entry index
 [H,W] int32 (an index into the binned entry list, -1 for none). The
@@ -58,6 +73,68 @@ def _untile(t_p_c: torch.Tensor, tiles_y: int, tiles_x: int, tile: int,
     img = img.permute(4, 0, 2, 1, 3).reshape(c, tiles_y * tile,
                                              tiles_x * tile)
     return img[:, :height, :width]
+
+
+ROW_COLS = 12  # floats per packed row, and per gradient row of K2
+
+
+def unpack_grads(rows: torch.Tensor):
+    """(means2d, conic, rgb, opacity, inv_depth) views of K2's [N, 12]
+    gradient rows, laid out like the kernels' staged entry rows:
+    mx, my, opacity, inv_depth | ca, cb, cc, - | r, g, b, -."""
+    return (rows[:, 0:2], rows[:, 4:7], rows[:, 8:11], rows[:, 2],
+            rows[:, 3])
+
+
+def pack_rows_plain(means2d, conic, rgb, opacity, inv_depth) -> torch.Tensor:
+    """The packed rows in plain torch, [N, 12]: what the kernels' pack
+    pre-pass writes (and the inverse of ``unpack_grads``)."""
+    pad = means2d.new_zeros((means2d.shape[0], 1))
+    return torch.cat([means2d, opacity[:, None], inv_depth[:, None], conic,
+                      pad, rgb, pad], dim=1)
+
+
+def tile_order(tile_count: torch.Tensor) -> torch.Tensor:
+    """The tiles as the kernels' blocks take them: deepest first, ties in
+    tile order (a stable sort), int64 [T]."""
+    return torch.sort(tile_count, descending=True, stable=True).indices
+
+
+# Margins of the cull, the constants of csrc/blend_common.cuh.
+CULL_ABS = 1e-3
+CULL_REL = 2e-6
+CULL_DET_REL = 1e-6
+CULL_SLACK = 1.00001
+
+
+def cull_plain(means2d, conic, opacity, x0, x1, y0, y1) -> torch.Tensor:
+    """The kernels' conservative cull (``cull_footprint``) in plain torch:
+    True where no pixel of the footprint [x0, x1] x [y0, y1] (inclusive
+    pixel coordinates; scalars or tensors broadcast against the Gaussians)
+    can pass the exact float32 test ``power <= 0 and alpha >= 1/255``.
+
+    A passing pixel has -power <= ln(255 o) + rounding; for a positive
+    definite conic the least -power over a column at distance dx from the
+    mean is dx^2 det / (2 cc) (dy^2 det / (2 ca) over a row). Anything in
+    doubt (NaN, a non-positive determinant) is not culled.
+    """
+    mx, my = means2d[..., 0], means2d[..., 1]
+    ca, cb, cc = conic[..., 0], conic[..., 1], conic[..., 2]
+    zero = torch.zeros((), dtype=mx.dtype, device=mx.device)
+    dx0, dx1 = x0 - mx, mx - x1
+    dy0, dy1 = y0 - my, my - y1
+    dx_min = torch.maximum(zero, torch.maximum(dx0, dx1))
+    dy_min = torch.maximum(zero, torch.maximum(dy0, dy1))
+    dx_max = torch.maximum(dx0.abs(), dx1.abs())
+    dy_max = torch.maximum(dy0.abs(), dy1.abs())
+    s = ca * dx_max * dx_max + cc * dy_max * dy_max
+    lm = torch.log(255.0 * opacity) + (CULL_ABS + CULL_REL * s)
+    ac, bb = ca * cc, cb * cb
+    det_lo = (ac - bb) - CULL_DET_REL * (ac + bb)
+    definite = (ca > 0) & (cc > 0) & (det_lo > 0)
+    out_x = dx_min * dx_min * det_lo > 2.0 * cc * lm * CULL_SLACK
+    out_y = dy_min * dy_min * det_lo > 2.0 * ca * lm * CULL_SLACK
+    return (lm < 0) | (definite & (out_x | out_y))
 
 
 def blend_plain(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
@@ -184,14 +261,22 @@ def _check_inputs(tensors: dict, height: int, width: int, tile: int):
             raise ValueError(f"{name} is not contiguous")
 
 
+# blend_fwd_launch: five columns, N, pack, entry list (3) and tile order,
+# n_tiles, tiles_x, height, width, four outputs, stream.
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] * 5)
+
+
 def _launch_blend_fwd(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
-                      tile_start, tile_count, height: int, width: int):
-    lib = kernels.load("blend_fwd")
-    fn = lib.blend_fwd_launch
+                      tile_start, tile_count, order, height: int,
+                      width: int):
+    fn = kernels.load("blend_fwd").blend_fwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 5)
+    fn.argtypes = _FWD_ARGTYPES
     dev = means2d.device
+    n = means2d.shape[0]
+    pack = torch.empty((n, ROW_COLS), dtype=torch.float32, device=dev)
     tiles_y, tiles_x = num_tiles(height, width, TILE)
     color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     invd = torch.empty((1, height, width), dtype=torch.float32, device=dev)
@@ -200,14 +285,45 @@ def _launch_blend_fwd(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(means2d.data_ptr(), conic.data_ptr(), rgb.data_ptr(),
-                    opacity.data_ptr(), inv_depth.data_ptr(),
-                    gauss_idx.data_ptr(), tile_start.data_ptr(),
-                    tile_count.data_ptr(), tiles_y * tiles_x, tiles_x,
-                    height, width, color.data_ptr(), invd.data_ptr(),
-                    trans.data_ptr(), last.data_ptr(), stream)
+                    opacity.data_ptr(), inv_depth.data_ptr(), n,
+                    pack.data_ptr(), gauss_idx.data_ptr(),
+                    tile_start.data_ptr(), tile_count.data_ptr(),
+                    order.data_ptr(),
+                    tiles_y * tiles_x, tiles_x, height, width,
+                    color.data_ptr(), invd.data_ptr(), trans.data_ptr(),
+                    last.data_ptr(), stream)
     kernels.check("blend_fwd", status)
     kernels.LAUNCHES["blend_fwd"] += 1
-    return color, invd, trans, last
+    return (color, invd, trans, last), pack
+
+
+def pack_rows(means2d, conic, rgb, opacity, inv_depth) -> torch.Tensor:
+    """The packed rows alone, [N, 12]: for CUDA tensors the pack pre-pass
+    of K1's launch without the blend (not counted as a launch of K1), for
+    CPU tensors ``pack_rows_plain``. The main path never calls it: K1's
+    launch packs. It lets the pre-pass be timed and checked on its own."""
+    cols = (means2d, conic, rgb, opacity, inv_depth)
+    if all(t.device.type == "cpu" for t in cols):
+        return pack_rows_plain(*cols)
+    dev = means2d.device
+    n = means2d.shape[0]
+    for (name, width), t in zip(_FLOAT_ARGS, cols):
+        shape = (n, width) if width else (n,)
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: want contiguous float32 {shape} on "
+                             f"{dev}")
+    fn = kernels.load("blend_fwd").blend_fwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = _FWD_ARGTYPES
+    pack = torch.empty((n, ROW_COLS), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*(t.data_ptr() for t in cols), n, pack.data_ptr(),
+                    None, None, None, None, 0, 1, TILE, TILE, None, None,
+                    None, None, stream)
+    kernels.check("blend_fwd", status)
+    return pack
 
 
 def _tile_image(img: torch.Tensor, tiles_y: int, tiles_x: int,
@@ -358,33 +474,6 @@ def blend_backward_plain(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
     return out
 
 
-def _launch_blend_bwd(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
-                      tile_start, final_t, last, g_color, g_invd, g_t,
-                      height: int, width: int):
-    lib = kernels.load("blend_bwd")
-    fn = lib.blend_bwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 7)
-    dev = means2d.device
-    tiles_y, tiles_x = num_tiles(height, width, TILE)
-    grads = torch.zeros((means2d.shape[0], 10), dtype=torch.float32,
-                        device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(means2d.data_ptr(), conic.data_ptr(), rgb.data_ptr(),
-                    opacity.data_ptr(), inv_depth.data_ptr(),
-                    gauss_idx.data_ptr(), tile_start.data_ptr(),
-                    tiles_y * tiles_x, tiles_x, height, width,
-                    final_t.data_ptr(), last.data_ptr(), g_color.data_ptr(),
-                    g_invd.data_ptr(), g_t.data_ptr(), grads.data_ptr(),
-                    stream)
-    kernels.check("blend_bwd", status)
-    kernels.LAUNCHES["blend_bwd"] += 1
-    return (grads[:, 0:2], grads[:, 2:5], grads[:, 5:8], grads[:, 8],
-            grads[:, 9])
-
-
 def _check_pixels(tensors: dict, device):
     for name, (t, shape, dtype) in tensors.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -394,6 +483,55 @@ def _check_pixels(tensors: dict, device):
             raise ValueError(f"{name} is on {t.device}, not {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+
+
+_ARG_NAMES = ("means2d", "conic", "rgb", "opacity", "inv_depth", "gauss_idx",
+              "tile_start", "tile_count")
+
+
+# blend_bwd_launch: five columns, N, pack, do_pack, entry list (2) and tile
+# order, n_tiles, tiles_x, height, width, five per-pixel inputs, grads,
+# stream.
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p]
+                 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7)
+
+
+def _blend_backward_cuda(columns, pack, gauss_idx, tile_start, order,
+                         final_t, last, g_color, g_invd, g_t, height: int,
+                         width: int):
+    """Check the per-pixel tensors and launch K2 on the packed rows (the
+    caller checked the per-Gaussian columns and the entry list).
+    ``columns`` (means2d, conic, rgb, opacity, inv_depth) is None when
+    ``pack`` already holds the rows, written by K1's launch; otherwise the
+    launch packs them first."""
+    hw = (height, width)
+    dev = pack.device
+    _check_pixels({
+        "final_t": (final_t, hw, torch.float32),
+        "last": (last, hw, torch.int32),
+        "g_color": (g_color, (3,) + hw, torch.float32),
+        "g_invd": (g_invd, (1,) + hw, torch.float32),
+        "g_t": (g_t, hw, torch.float32)}, dev)
+    fn = kernels.load("blend_bwd").blend_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = _BWD_ARGTYPES
+    n = pack.shape[0]
+    tiles_y, tiles_x = num_tiles(height, width, TILE)
+    grads = torch.zeros((n, ROW_COLS), dtype=torch.float32, device=dev)
+    col_ptrs = ([None] * 5 if columns is None
+                else [t.data_ptr() for t in columns])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*col_ptrs, n, pack.data_ptr(), int(columns is not None),
+                    gauss_idx.data_ptr(), tile_start.data_ptr(),
+                    order.data_ptr(), tiles_y * tiles_x, tiles_x, height,
+                    width, final_t.data_ptr(), last.data_ptr(),
+                    g_color.data_ptr(), g_invd.data_ptr(), g_t.data_ptr(),
+                    grads.data_ptr(), stream)
+    kernels.check("blend_bwd", status)
+    kernels.LAUNCHES["blend_bwd"] += 1
+    return unpack_grads(grads)
 
 
 def blend_backward(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
@@ -407,19 +545,12 @@ def blend_backward(means2d, conic, rgb, opacity, inv_depth, gauss_idx,
     if all(t.device.type == "cpu" for t in args):
         return blend_backward_plain(*args, color, invdepth, final_t,
                                     g_color, g_invd, g_t, height, width)
-    _check_inputs(dict(zip(
-        ("means2d", "conic", "rgb", "opacity", "inv_depth", "gauss_idx",
-         "tile_start", "tile_count"), args)), height, width, TILE)
-    hw = (height, width)
-    _check_pixels({
-        "final_t": (final_t, hw, torch.float32),
-        "last": (last, hw, torch.int32),
-        "g_color": (g_color, (3,) + hw, torch.float32),
-        "g_invd": (g_invd, (1,) + hw, torch.float32),
-        "g_t": (g_t, hw, torch.float32)}, means2d.device)
-    return _launch_blend_bwd(means2d, conic, rgb, opacity, inv_depth,
-                             gauss_idx, tile_start, final_t, last, g_color,
-                             g_invd, g_t, height, width)
+    _check_inputs(dict(zip(_ARG_NAMES, args)), height, width, TILE)
+    pack = torch.empty((means2d.shape[0], ROW_COLS), dtype=torch.float32,
+                       device=means2d.device)
+    return _blend_backward_cuda(args[:5], pack, gauss_idx, tile_start,
+                                tile_order(tile_count), final_t, last,
+                                g_color, g_invd, g_t, height, width)
 
 
 class _BlendForward(torch.autograd.Function):
@@ -428,25 +559,29 @@ class _BlendForward(torch.autograd.Function):
                 tile_start, tile_count, height, width):
         args = (means2d, conic, rgb, opacity, inv_depth, gauss_idx,
                 tile_start, tile_count)
-        if all(t.device.type == "cpu" for t in args):
+        ctx.on_cpu = all(t.device.type == "cpu" for t in args)
+        if ctx.on_cpu:
             out = blend_plain(*args, height, width)
+            ctx.save_for_backward(*args, *out)
         else:
-            _check_inputs(dict(zip(
-                ("means2d", "conic", "rgb", "opacity", "inv_depth",
-                 "gauss_idx", "tile_start", "tile_count"), args)),
-                height, width, TILE)
-            out = _launch_blend_fwd(*args, height, width)
+            _check_inputs(dict(zip(_ARG_NAMES, args)), height, width, TILE)
+            order = tile_order(tile_count)
+            out, pack = _launch_blend_fwd(*args, order, height, width)
+            # K2 reads the rows K1's launch packed, in the same tile order.
+            ctx.save_for_backward(pack, gauss_idx, tile_start, order,
+                                  out[2], out[3])
         ctx.mark_non_differentiable(out[3])
-        ctx.save_for_backward(*args, *out)
         ctx.size = (height, width)
         return out
 
     @staticmethod
     def backward(ctx, g_color, g_invd, g_t, _g_last):
-        saved = ctx.saved_tensors
-        grads = blend_backward(*saved, g_color.contiguous(),
-                               g_invd.contiguous(), g_t.contiguous(),
-                               *ctx.size)
+        cot = (g_color.contiguous(), g_invd.contiguous(), g_t.contiguous())
+        if ctx.on_cpu:
+            grads = blend_backward(*ctx.saved_tensors, *cot, *ctx.size)
+        else:
+            grads = _blend_backward_cuda(None, *ctx.saved_tensors, *cot,
+                                         *ctx.size)
         return grads + (None,) * 5
 
 

@@ -32,6 +32,11 @@ SOURCES: Dict[str, str] = {
     "blend_bwd": "blend_bwd.cu",
     "ssim": "ssim.cu",
 }
+# Headers a source includes (csrc/): part of its library's hash.
+HEADERS: Dict[str, tuple] = {
+    "blend_fwd": ("blend_common.cuh",),
+    "blend_bwd": ("blend_common.cuh",),
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -65,10 +70,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for fname in (SOURCES[name],) + HEADERS.get(name, ()):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -115,6 +121,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib
+
+
+def occupancy(name: str):
+    """(resident blocks per SM, threads per block) of a blend kernel on the
+    current device, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    through the library's ``<name>_occupancy`` entry point."""
+    fn = getattr(load(name), f"{name}_occupancy")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    check(name, fn(ctypes.byref(blocks), ctypes.byref(threads)))
+    return blocks.value, threads.value
 
 
 def check(name: str, status: int) -> None:

@@ -193,3 +193,229 @@ def test_ssim_kernel_rejects_bad_inputs():
     with pytest.raises(ValueError, match="H, W"):
         small = x[:, :8].contiguous()
         ssim.fused_photometric_forward(small, small, 0.2)
+
+
+# ---------------------------------------------------------------------------
+# Crafted entry lists for the cases the blend kernels' batching, warp skips
+# and cull can get wrong. One row of 16x16 tiles; every tile lists Gaussians
+# of its own (entries of a tile are distinct Gaussians).
+
+def _conic_of(s1, s2, theta):
+    """Conic of the covariance R diag(s1^2, s2^2) R^T + 0.3 I."""
+    c, s = np.cos(theta), np.sin(theta)
+    xx = c * c * s1 ** 2 + s * s * s2 ** 2 + 0.3
+    yy = s * s * s1 ** 2 + c * c * s2 ** 2 + 0.3
+    xy = c * s * (s1 ** 2 - s2 ** 2)
+    det = xx * yy - xy * xy
+    return np.stack([yy / det, -xy / det, xx / det], -1)
+
+
+def _crafted(kind, seed=0):
+    """(blend args on the CPU, height, width, rows that no pair reaches)."""
+    rng = np.random.default_rng(seed)
+    # K1 stages 256 entries a batch, K2 128: none, one batch, one more
+    # than a batch, several batches.
+    counts = {"batches": [0, 128, 129, 256, 257, 700, 1],
+              "ended_warp": [600], "thin": [400, 400, 400],
+              "thresholds": [64, 64], "untouched": [40, 300]}[kind]
+    n_tiles = len(counts)
+    height, width = 16, 16 * n_tiles
+    if kind in ("thin", "thresholds"):
+        width -= 5                                   # ragged right edge
+    means, conic, opac = [], [], []
+    for t, cnt in enumerate(counts):
+        cx = 16.0 * t
+        m = np.stack([rng.uniform(cx - 3, cx + 19, cnt),
+                      rng.uniform(-3, 19, cnt)], 1)
+        if kind == "thin":
+            q = _conic_of(rng.uniform(5, 40, cnt), rng.uniform(0.05, 0.4, cnt),
+                          rng.uniform(0, np.pi, cnt))
+            o = rng.uniform(0.02, 0.3, cnt)
+        else:
+            q = _conic_of(rng.uniform(0.8, 4.0, cnt),
+                          rng.uniform(0.8, 4.0, cnt),
+                          rng.uniform(0, np.pi, cnt))
+            # Faint: the walk goes deep before a pixel ends.
+            o = rng.uniform(0.01, 0.08, cnt)
+        if kind == "ended_warp":
+            # Three opaque pinpoint splats on each of the tile's top-left
+            # 8x4 pixels come first: that warp's pixels end (T < 1e-4)
+            # inside the first batch, the other warps walk on through the
+            # later batches.
+            xs, ys = np.meshgrid(np.arange(8.0), np.arange(4.0))
+            m[:96] = np.tile(np.stack([xs.ravel(), ys.ravel()], 1), (3, 1))
+            q[:96] = _conic_of(np.full(96, 0.1), np.full(96, 0.1),
+                               np.zeros(96))
+            o[:96] = 1.0
+        if kind == "thresholds":
+            # Means on pixel centres: expf(0) = 1, so alpha is the opacity,
+            # a few float32 steps around 1/255 and around the 0.99 clamp.
+            m = np.stack([cx + rng.integers(0, 16, cnt),
+                          rng.integers(0, 16, cnt)], 1).astype(np.float64)
+            steps = rng.integers(-3, 4, cnt)
+            base = np.where(rng.random(cnt) < 0.5, np.float32(1.0 / 255.0),
+                            np.float32(0.99))
+            o = base.astype(np.float32)
+            for _ in range(3):
+                o = np.where(steps > 0, np.nextafter(o, np.float32(2)),
+                             np.where(steps < 0,
+                                      np.nextafter(o, np.float32(0)), o))
+                steps = steps - np.sign(steps)
+        means.append(m), conic.append(q), opac.append(o)
+    means = np.concatenate(means).astype(np.float32)
+    conic = np.concatenate(conic).astype(np.float32)
+    opac = np.concatenate(opac).astype(np.float32)
+    n = means.shape[0]
+    untouched = []
+    if kind == "untouched":
+        # Listed in a tile, yet no pair contributes: an opacity under
+        # 1/255, a splat far outside its tile, and one hidden behind
+        # opaque splats that end every pixel of the first tile before it.
+        opac[5] = 1.0 / 300.0
+        means[7] = [400.0, -300.0]
+        means[:4] = [[4.0, 4.0], [12.0, 4.0], [4.0, 12.0], [12.0, 12.0]]
+        conic[:4] = _conic_of(np.full(4, 9.0), np.full(4, 9.0), np.zeros(4))
+        opac[:4] = 1.0
+        # Twelve more opaque rows on the same four spots: every pixel of
+        # tile 0 ends well before its last entry.
+        means[8:20] = np.tile(means[:4], (3, 1))
+        conic[8:20] = np.tile(conic[:4], (3, 1))
+        opac[8:20] = 1.0
+        untouched = [5, 7, 39]
+    gauss_idx = np.arange(n, dtype=np.int32)
+    if kind == "untouched":
+        # Tile 0 walks its opaque rows first, row 39 last.
+        first = [0, 1, 2, 3] + list(range(8, 20))
+        rest = [i for i in range(40) if i not in first]
+        gauss_idx[:40] = first + rest
+    tile_count = np.asarray(counts, np.int32)
+    tile_start = (np.cumsum(tile_count) - tile_count).astype(np.int32)
+    args = (torch.as_tensor(means), torch.as_tensor(conic),
+            torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32)),
+            torch.as_tensor(opac),
+            torch.as_tensor(rng.uniform(0.1, 1, n).astype(np.float32)),
+            torch.as_tensor(gauss_idx), torch.as_tensor(tile_start),
+            torch.as_tensor(tile_count))
+    return args, height, width, untouched
+
+
+def _run_both(args, height, width, seed):
+    """K1 and K2 on the card, and the plain versions on the CPU."""
+    dev = [a.cuda().contiguous() for a in args]
+    fwd = blend.blend_forward(*dev, height, width)
+    gen = torch.Generator().manual_seed(seed)
+    cot = (torch.randn((3, height, width), generator=gen),
+           torch.randn((1, height, width), generator=gen),
+           torch.randn((height, width), generator=gen))
+    got = blend.blend_backward(*dev, *fwd, *(c.cuda() for c in cot), height,
+                               width)
+    torch.cuda.synchronize()
+    fwd_plain = blend.blend_plain(*args, height, width)
+    want = blend.blend_backward_plain(*args, *fwd_plain[:3], *cot, height,
+                                      width)
+    return fwd, got, fwd_plain, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["batches", "ended_warp", "thin",
+                                  "thresholds", "untouched"])
+def test_blend_kernels_crafted_cases(kind):
+    """Tiles with no entry, exactly one staged batch, one entry more and
+    several batches; a warp whose pixels all end before the later batches;
+    thin rotated splats across the warps' footprints (the cull); alphas a
+    few float32 steps around 1/255 and the 0.99 clamp; Gaussians listed in
+    a tile that no pair reaches, whose gradient rows must stay exact
+    zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    args, height, width, untouched = _crafted(kind)
+    fwd, got, fwd_plain, want = _run_both(args, height, width, 3)
+    # K1: float32 rounding only; no termination flip allowed to hide a
+    # lost or doubled entry (at most one pixel in a thousand over 1e-4).
+    for g, w in zip(fwd[:3], fwd_plain[:3]):
+        d = (g.cpu() - w).abs()
+        assert (d > 1e-4).float().mean() <= 1e-3, (kind, float(d.max()))
+        assert float(d.max()) <= 1e-3, (kind, float(d.max()))
+    assert (fwd[3].cpu() == fwd_plain[3]).float().mean() >= 0.999
+    if kind == "batches":
+        assert bool((fwd[2][:, :16] == 1.0).all())      # the empty tile
+        assert bool((fwd[3][:, :16] == -1).all())
+    if kind == "ended_warp":
+        # The first warp's pixels ended inside the first batch, the others
+        # went on into the later ones.
+        last = fwd[3].cpu()
+        assert int(last[:4, :8].max()) < 128 < int(last[8:, 8:].min())
+    for name, g, w in zip(("means2d", "conic", "rgb", "opacity",
+                           "inv_depth"), got, want):
+        _grad_close(g, w, (kind, name))
+    nz_k = got[3].cpu() != 0
+    nz_p = want[3] != 0
+    tiny = (got[3].cpu().abs() < 1e-12) & (want[3].abs() < 1e-12)
+    assert bool(((nz_k == nz_p) | tiny).all())
+    for row in untouched:
+        for g, w in zip(got, want):
+            assert bool((w[row] == 0).all()), (kind, row)   # the scene holds
+            assert bool((g[row] == 0).all()), (kind, row)   # bit for bit
+
+
+@pytest.mark.cuda
+def test_blend_backward_two_launches_agree():
+    """atomicAdd order changes from launch to launch: two launches on the
+    same inputs agree within K2's tolerance, and their masks are equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = [a.cuda().contiguous() for a in _blend_inputs(2000, 1, 333, 197,
+                                                         0.2)]
+    fwd = blend.blend_forward(*args, 197, 333)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cot = (torch.randn((3, 197, 333), generator=gen, device="cuda"),
+           torch.randn((1, 197, 333), generator=gen, device="cuda"),
+           torch.randn((197, 333), generator=gen, device="cuda"))
+    a = blend.blend_backward(*args, *fwd, *cot, 197, 333)
+    b = blend.blend_backward(*args, *fwd, *cot, 197, 333)
+    for name, x, y in zip(("means2d", "conic", "rgb", "opacity",
+                           "inv_depth"), a, b):
+        _grad_close(x, y, name)
+    assert torch.equal(a[3] != 0, b[3] != 0)
+
+
+@pytest.mark.cuda
+def test_blend_autograd_uses_saved_rows():
+    """Through autograd (the training path) K2 runs on the rows and the
+    tile order that the forward saved: same gradients as the standalone
+    wrapper, one launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = [a.cuda().contiguous() for a in _blend_inputs(500, 4, 120, 90,
+                                                         0.3)]
+    leaves = [a.clone().requires_grad_(True) for a in args[:5]]
+    before = dict(kernels.LAUNCHES)
+    color, invd, final_t, last = blend.blend_forward(*leaves, *args[5:], 90,
+                                                     120)
+    loss = (color.square().sum() + invd.sum() + (final_t * 0.5).sum())
+    loss.backward()
+    assert kernels.LAUNCHES["blend_fwd"] == before["blend_fwd"] + 1
+    assert kernels.LAUNCHES["blend_bwd"] == before["blend_bwd"] + 1
+    want = blend.blend_backward(
+        *args, color.detach(), invd.detach(), final_t.detach(), last,
+        2.0 * color.detach(), torch.ones_like(invd),
+        torch.full_like(final_t, 0.5), 90, 120)
+    for leaf, w in zip(leaves, want):
+        _grad_close(leaf.grad, w.reshape(leaf.shape), "autograd")
+
+
+@pytest.mark.cuda
+def test_pack_prepass_and_occupancy():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for n in (0, 1, 255, 256, 257, 5000):
+        cols = [torch.randn((n, 2)), torch.randn((n, 3)), torch.randn((n, 3)),
+                torch.randn(n), torch.randn(n)]
+        rows = blend.pack_rows(*(c.cuda() for c in cols))
+        assert torch.equal(rows.cpu(), blend.pack_rows_plain(*cols)), n
+    with pytest.raises(ValueError, match="conic"):
+        blend.pack_rows(cols[0].cuda(), cols[1].cuda().double(),
+                        *(c.cuda() for c in cols[2:]))
+    for name in ("blend_fwd", "blend_bwd"):
+        blocks, threads = kernels.occupancy(name)
+        assert blocks >= 1 and threads == 256
