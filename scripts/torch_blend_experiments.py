@@ -273,7 +273,7 @@ def time_view(view, variants, libs, direction):
         orders = ((("deepest first", view.order), ("raster", view.raster))
                   if kind.startswith("new") else (("raster", None),))
         whole = name in (f"old_{direction}", f"new_{direction}") or \
-            name.endswith(("nocull", "batch64")) or "minblocks" in name
+            name.endswith(("cull", "batch64")) or "minblocks" in name
         for label, order in orders:
             out = run(name, kind, order)
             torch.cuda.synchronize()
