@@ -52,6 +52,23 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def add_train_args(parser: argparse.ArgumentParser, viewer: bool) -> None:
+    """The flags every training entry point shares: saves, checkpoints,
+    the device and (``viewer``) the training viewer's socket."""
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default="")
+    if viewer:
+        parser.add_argument("--ip", type=str, default="127.0.0.1")
+        parser.add_argument("--port", type=int, default=6009)
+        parser.add_argument("--disable_viewer", action="store_true")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; raises without "
+                             "it)")
+
+
 def parse_full_config(parser: argparse.ArgumentParser, argv=None):
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     cfg = FullConfig(

@@ -13,278 +13,353 @@
 //   c_P = s (-map / B2), c_R = s (2 A1 / (B1 B2)), s = -l / (3HW),
 //   grad = G*c_u + 2x (G*c_P) + y (G*c_R) + (1-l) sign(x-y) / (3HW).
 //
-// Design (simple and correct first), three launches on one stream:
-//   A. per 32x32 output tile of one channel: x and y with a 5-pixel halo
-//      (zero outside the image) in shared memory; the five fields blurred
-//      along rows then columns; the map; c_u, c_P, c_R written to global
-//      memory (zero outside the image by construction of B's loads); the
-//      block's sums of |x-y| and of the map, reduced in a fixed tree order.
-//   B. per tile: the three coefficient fields with the same halo scheme,
-//      blurred once more, and the gradient assembled.
-//   C. one block sums the per-block partials in a fixed order (double), so
-//      the loss is deterministic, and writes it.
-// The window weights are computed on the host exactly as _window() and
-// copied into __constant__ memory before the launches. float32 throughout
-// (no TF32, no fast math), built with -fmad=false (ops/kernels.py) so each
-// product and sum rounds as in the plain version's separate PyTorch
-// kernels: the variance terms cancel, and the loss is held to the plain
-// version within 1e-6.
-//
 // What bounds it on the H100: about 400 FP32 operations per channel pixel
 // (8 blurred fields x 2 passes x 11 taps x 2, plus the map and the
-// coefficients) against 67 TFLOP/s, and 36 bytes per pixel (x and y read,
-// the gradient written) against 3.35 TB/s: the operations bind. Launch A
-// writes and launch B reads back 36 B per pixel of coefficient fields;
-// fusing A and B behind a 10-pixel halo removes that traffic and is later
-// speed work.
+// coefficients) against 67 TFLOP/s; 12 bytes per channel pixel (x and y
+// read, the gradient written) against 3.35 TB/s is the smaller time. The
+// operations bind, so the design spends its effort on instruction slots
+// and shared-memory loads, and keeps the coefficient fields out of global
+// memory altogether.
+//
+// Design: ONE launch. A block of kThreads threads owns a strip of one
+// channel, kThreads columns wide and rows_per_block + 21 rows tall, and
+// walks down it one image row a step; thread t owns column
+// ox - 10 + t. The two blurs of the gradient reach 10 pixels, so the
+// inner kThreads - 20 columns and rows_per_block rows are the block's
+// outputs and the rim is recomputed by its neighbours. Per step:
+//   1. the thread's x and y of the new row (loaded a step ahead) go to a
+//      shared row buffer, with the coefficient row the previous step
+//      finished; one __syncthreads();
+//   2. the five fields are blurred along the row from the shared x and y
+//      (22 shared loads for 55 multiply-adds: the products x^2, y^2, xy
+//      are recomputed per tap, which costs the same issue slots as
+//      loading them would and less shared memory);
+//   3. the blur down the column is a sliding window in registers in
+//      scatter form: the row's value is added with tap j into the
+//      accumulator of output row i + 5 - j, 11 accumulators per field in a
+//      ring that the step's phase (step mod 11, a compile-time constant of
+//      the walk unrolled over the window) indexes statically; the
+//      accumulator of row i - 5 is then complete. No shared load at all
+//      for this pass, and no register moves (a ring that shifts inside a
+//      loop body not unrolled costs 88 MOVs a step: measured, dropped);
+//   4. the map and the three coefficients of row i - 5 (zero outside the
+//      image, which is the second blur's zero padding);
+//   5. the same two passes over the three coefficients of row i - 6: along
+//      the row from shared memory (33 loads), down the column in a second
+//      register ring; row i - 11 of the gradient is complete and stored.
+// Buffers are double (step parity), so one barrier a step suffices. The
+// 11 taps arrive as a by-value kernel argument (the constant bank), no
+// copy per call. The two sums are kept per thread in float32 over at most
+// 11 rows and then in float64; a block writes its float64 partials, takes
+// a ticket (atomicAdd after __threadfence()), and the last block sums all
+// partials in index order, so the loss is deterministic, and resets the
+// ticket for the next launch.
+//
+// Rounding. The blur accumulations are fused multiply-adds (__fmaf_rn, one
+// rounding each, in the plain version's tap order). Everything that
+// cancels or divides -- the variance terms (P - u^2) + (Q - v^2) and
+// R - uv, the map and the coefficient algebra -- is written with
+// __fmul_rn / __fadd_rn / __fsub_rn / __frcp_rn in the plain version's
+// order, so the compiler cannot contract it. The kernel is therefore not
+// bit-equal to the plain version (which rounds every product); it is held
+// to be no farther from the float64 plain version than the float32 plain
+// version is (chip_smoke.py, tests/test_torch_cuda.py).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWin = 11;
 constexpr int kRad = kWin / 2;
-constexpr int kTileW = 32;
-constexpr int kTileH = 32;
-constexpr int kHaloW = kTileW + 2 * kRad;
-constexpr int kHaloH = kTileH + 2 * kRad;
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kRowsPerThread = kTileH / kThreadsY;
+constexpr int kHalo = 2 * kRad;                 // two blurs deep
+constexpr int kThreads = 128;                   // strip columns per block
+constexpr int kTileW = kThreads - 2 * kHalo;    // output columns per block
+constexpr int kRowLen = kThreads + 2 * kRad;    // shared row, 5 pads a side
+constexpr int kMinBlocksPerSM = 3;
 // c1 = 0.01^2 and c2 = 0.03^2 rounded once to float32, as the plain
 // version's Python constants are.
 constexpr float kC1 = 1.0e-4f;
 constexpr float kC2 = 9.0e-4f;
 
-__constant__ float c_win[kWin];
+struct Taps {
+  float w[kWin];
+};
 
-// Fixed-order tree sum of one value per thread; the result is valid in
-// thread 0. ``buf`` holds kThreads floats.
-__device__ float block_sum(float v, float* buf) {
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  buf[tid] = v;
+// One parity's shared rows: x, y and the three coefficient fields, each
+// with five zero pads a side; a thread reaches all of them from one base
+// address with immediate offsets.
+struct Rows {
+  float f[5][kRowLen];
+};
+constexpr int kRowsFloats = 5 * kRowLen;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+ssim_fused_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  int h, int w, int rows_per_block, Taps taps,
+                  float coef_scale, float l1_scale, double inv_n, double lam,
+                  float* __restrict__ grad, double* __restrict__ partial,
+                  unsigned int* __restrict__ ticket,
+                  float* __restrict__ loss) {
+  __shared__ Rows buf[2];
+  __shared__ double red[2][kThreads];
+  __shared__ bool is_last;
+
+  const int t = threadIdx.x;
+  const int ox = blockIdx.x * kTileW;
+  const int oy = blockIdx.y * rows_per_block;
+  const int rows = min(rows_per_block, h - oy);
+  const int gx = ox - kHalo + t;
+  const bool col_in = gx >= 0 && gx < w;
+  const bool col_owned = t >= kHalo && t < kThreads - kHalo && gx < w;
+
+  // The five columns either side of the strip read as zero; they feed
+  // only the strip's rim, which no output of this block depends on.
+  if (t < kRad) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k)
+        buf[b].f[k][t] = buf[b].f[k][kRowLen - 1 - t] = 0.0f;
+    }
+  }
+  float* const mine = &buf[0].f[0][t + kRad];
+
+  // Element offset of (row i + 1, column gx) in the channel, carried from
+  // step to step (it leaves the image above and below: tested, never
+  // dereferenced there).
+  const long long chan = static_cast<long long>(blockIdx.z) * h * w;
+  long long next = chan + static_cast<long long>(oy - kHalo) * w + gx;
+  const long long back = static_cast<long long>(kHalo + 3) * w;
+
+  float a1[5][kWin] = {};    // column rings of u, v, P, Q, R
+  float a2[3][kWin] = {};    // column rings of G*c_u, G*c_P, G*c_R
+  float cu = 0.0f, cp = 0.0f, cr = 0.0f;   // coefficients of row i - 6
+  float xn = 0.0f, yn = 0.0f;
+  if (col_in && oy - kHalo >= 0) {
+    xn = x[next];
+    yn = y[next];
+  }
+  next += w;
+  double l1_sum = 0.0, ss_sum = 0.0;
+
+  // Step s takes input row i = oy - 10 + s, finishes the fields of row
+  // i - 5 and the gradient of row i - 11. The walk is unrolled over the
+  // window so that the rings' slots are compile-time registers.
+  const int steps = rows + 2 * kHalo + 1;
+  for (int s0 = 0; s0 < steps; s0 += kWin) {
+    float l1 = 0.0f, ss = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kWin; ++p) {        // p = s mod 11, static
+      const int s = s0 + p;
+      if (s < steps) {                      // uniform over the block
+        float* const m = mine + (s & 1) * kRowsFloats;
+        const float xv = xn, yv = yn;
+        m[0] = xv;
+        m[kRowLen] = yv;
+        m[2 * kRowLen] = cu;
+        m[3 * kRowLen] = cp;
+        m[4 * kRowLen] = cr;
+        // Row i is the block's own for kHalo <= s < kHalo + rows.
+        if (col_owned && s >= kHalo && s < kHalo + rows)
+          l1 += fabsf(xv - yv);
+        xn = yn = 0.0f;
+        if (col_in && static_cast<unsigned>(oy - kHalo + s + 1)
+                          < static_cast<unsigned>(h)) {
+          xn = x[next];
+          yn = y[next];
+        }
+        next += w;
+        __syncthreads();
+
+        // Stage 1 along the row.
+        const float* const r = m - kRad;
+        float hu = 0.0f, hv = 0.0f, hp = 0.0f, hq = 0.0f, hr = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kWin; ++j) {
+          const float wj = taps.w[j];
+          const float a = r[j];
+          const float c = r[kRowLen + j];
+          hu = __fmaf_rn(wj, a, hu);
+          hv = __fmaf_rn(wj, c, hv);
+          hp = __fmaf_rn(wj, __fmul_rn(a, a), hp);
+          hq = __fmaf_rn(wj, __fmul_rn(c, c), hq);
+          hr = __fmaf_rn(wj, __fmul_rn(a, c), hr);
+        }
+        // Stage 1 down the column: tap j of row i lands in row i + 5 - j.
+        // Tap 0 opens a slot (the one the step before emptied), so it is
+        // a product, not a sum onto a zeroed register.
+        a1[0][(p + kRad) % kWin] = __fmul_rn(taps.w[0], hu);
+        a1[1][(p + kRad) % kWin] = __fmul_rn(taps.w[0], hv);
+        a1[2][(p + kRad) % kWin] = __fmul_rn(taps.w[0], hp);
+        a1[3][(p + kRad) % kWin] = __fmul_rn(taps.w[0], hq);
+        a1[4][(p + kRad) % kWin] = __fmul_rn(taps.w[0], hr);
+#pragma unroll
+        for (int j = 1; j < kWin; ++j) {
+          const int slot = (p + kRad - j + kWin) % kWin;
+          const float wj = taps.w[j];
+          a1[0][slot] = __fmaf_rn(wj, hu, a1[0][slot]);
+          a1[1][slot] = __fmaf_rn(wj, hv, a1[1][slot]);
+          a1[2][slot] = __fmaf_rn(wj, hp, a1[2][slot]);
+          a1[3][slot] = __fmaf_rn(wj, hq, a1[3][slot]);
+          a1[4][slot] = __fmaf_rn(wj, hr, a1[4][slot]);
+        }
+        const int d1 = (p + kRad + 1) % kWin;   // row i - 5 is complete
+        const float u = a1[0][d1], v = a1[1][d1];
+        const float fp2 = a1[2][d1], fq2 = a1[3][d1], fr2 = a1[4][d1];
+
+        // The map and the coefficients of row i - 5; zero outside the
+        // image and before the ring has seen 11 rows.
+        cu = cp = cr = 0.0f;
+        if (s >= kHalo && col_in
+            && static_cast<unsigned>(oy - kHalo - kRad + s)
+                   < static_cast<unsigned>(h)) {
+          const float uv = __fmul_rn(u, v);
+          const float uu = __fmul_rn(u, u);
+          const float vv = __fmul_rn(v, v);
+          const float A1 = __fadd_rn(__fmul_rn(2.0f, uv), kC1);
+          const float A2 = __fadd_rn(__fmul_rn(2.0f, __fsub_rn(fr2, uv)),
+                                     kC2);
+          const float B1 = __fadd_rn(__fadd_rn(uu, vv), kC1);
+          const float B2 = fmaxf(
+              __fadd_rn(__fadd_rn(__fsub_rn(fp2, uu), __fsub_rn(fq2, vv)),
+                        kC2),
+              0.5f * kC2);
+          const float inv_b1 = __frcp_rn(B1);
+          const float inv_b2 = __frcp_rn(B2);
+          const float inv_d = __fmul_rn(inv_b1, inv_b2);
+          const float smap = __fmul_rn(__fmul_rn(A1, A2), inv_d);
+          cu = __fmul_rn(
+              coef_scale,
+              __fsub_rn(
+                  __fmul_rn(__fmul_rn(__fmul_rn(2.0f, v), __fsub_rn(A2, A1)),
+                            inv_d),
+                  __fmul_rn(__fmul_rn(__fmul_rn(2.0f, u), smap),
+                            __fsub_rn(inv_b1, inv_b2))));
+          cp = __fmul_rn(coef_scale, __fmul_rn(-smap, inv_b2));
+          cr = __fmul_rn(coef_scale, __fmul_rn(__fmul_rn(2.0f, A1), inv_d));
+          if (col_owned && s >= kHalo + kRad && s < kHalo + kRad + rows)
+            ss += smap;
+        }
+
+        // Stage 2 along the row, over the coefficients of row i - 6.
+        float gu = 0.0f, gp = 0.0f, gr = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kWin; ++j) {
+          const float wj = taps.w[j];
+          gu = __fmaf_rn(wj, r[2 * kRowLen + j], gu);
+          gp = __fmaf_rn(wj, r[3 * kRowLen + j], gp);
+          gr = __fmaf_rn(wj, r[4 * kRowLen + j], gr);
+        }
+        // Stage 2 down the column: tap j of row i - 6 lands in row
+        // i - 1 - j; row i - 11 is complete, in slot p.
+        a2[0][(p + kWin - 1) % kWin] = __fmul_rn(taps.w[0], gu);
+        a2[1][(p + kWin - 1) % kWin] = __fmul_rn(taps.w[0], gp);
+        a2[2][(p + kWin - 1) % kWin] = __fmul_rn(taps.w[0], gr);
+#pragma unroll
+        for (int j = 1; j < kWin; ++j) {
+          const int slot = (p + kWin - 1 - j) % kWin;
+          const float wj = taps.w[j];
+          a2[0][slot] = __fmaf_rn(wj, gu, a2[0][slot]);
+          a2[1][slot] = __fmaf_rn(wj, gp, a2[1][slot]);
+          a2[2][slot] = __fmaf_rn(wj, gr, a2[2][slot]);
+        }
+        const float fu = a2[0][p], fp = a2[1][p], fr = a2[2][p];
+
+        if (s > 2 * kHalo && col_owned) {
+          const long long o = next - back;     // (row i - 11, column gx)
+          const float xo = x[o], yo = y[o];
+          const float d = xo - yo;
+          const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+          grad[o] = __fadd_rn(
+              __fadd_rn(__fadd_rn(fu, __fmul_rn(__fmul_rn(2.0f, xo), fp)),
+                        __fmul_rn(yo, fr)),
+              __fmul_rn(l1_scale, sgn));
+        }
+      }
+    }
+    l1_sum += static_cast<double>(l1);
+    ss_sum += static_cast<double>(ss);
+  }
+
+  // Block sums in a fixed tree order, then the ticket.
+  red[0][t] = l1_sum;
+  red[1][t] = ss_sum;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) buf[tid] += buf[tid + s];
+  for (int k = kThreads / 2; k > 0; k >>= 1) {
+    if (t < k) {
+      red[0][t] += red[0][t + k];
+      red[1][t] += red[1][t + k];
+    }
     __syncthreads();
   }
-  return buf[0];
-}
-
-__device__ __forceinline__ float load_or_zero(const float* img, int gy,
-                                              int gx, int h, int w) {
-  return (gy >= 0 && gy < h && gx >= 0 && gx < w) ? img[gy * w + gx] : 0.0f;
-}
-
-__global__ void __launch_bounds__(kThreads)
-ssim_fields_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   int h, int w, float coef_scale,
-                   float* __restrict__ c_u, float* __restrict__ c_p,
-                   float* __restrict__ c_r, float* __restrict__ partial) {
-  __shared__ float sx[kHaloH][kHaloW];
-  __shared__ float sy[kHaloH][kHaloW];
-  __shared__ float vb[5][kTileH][kHaloW];   // column-blurred fields
-  __shared__ float red[kThreads];
-
-  const int ch = blockIdx.z;
-  const int ox = blockIdx.x * kTileW;
-  const int oy = blockIdx.y * kTileH;
-  const size_t base = static_cast<size_t>(ch) * h * w;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-
-  for (int i = tid; i < kHaloH * kHaloW; i += kThreads) {
-    const int r = i / kHaloW, c = i % kHaloW;
-    sx[r][c] = load_or_zero(x + base, oy - kRad + r, ox - kRad + c, h, w);
-    sy[r][c] = load_or_zero(y + base, oy - kRad + r, ox - kRad + c, h, w);
+  const unsigned int n_blocks = gridDim.x * gridDim.y * gridDim.z;
+  if (t == 0) {
+    const unsigned int blk =
+        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    partial[2 * blk] = red[0][0];
+    partial[2 * blk + 1] = red[1][0];
+    __threadfence();
+    is_last = atomicAdd(ticket, 1u) == n_blocks - 1;
   }
   __syncthreads();
+  if (!is_last) return;
 
-  // Blur along the rows (H) first, as utils/losses._blur does.
-  for (int i = tid; i < kTileH * kHaloW; i += kThreads) {
-    const int r = i / kHaloW, c = i % kHaloW;
-    float u = 0.0f, v = 0.0f, p = 0.0f, q = 0.0f, s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kWin; ++j) {
-      const float wj = c_win[j];
-      const float a = sx[r + j][c];
-      const float b = sy[r + j][c];
-      u += wj * a;
-      v += wj * b;
-      p += wj * (a * a);
-      q += wj * (b * b);
-      s += wj * (a * b);
-    }
-    vb[0][r][c] = u;
-    vb[1][r][c] = v;
-    vb[2][r][c] = p;
-    vb[3][r][c] = q;
-    vb[4][r][c] = s;
+  // The last block to finish: every partial, in index order.
+  __threadfence();
+  double l1_all = 0.0, ss_all = 0.0;
+  for (unsigned int k = t; k < n_blocks; k += kThreads) {
+    l1_all += __ldcg(partial + 2 * k);
+    ss_all += __ldcg(partial + 2 * k + 1);
   }
+  red[0][t] = l1_all;
+  red[1][t] = ss_all;
   __syncthreads();
-
-  float l1 = 0.0f, ss = 0.0f;
-  const int c = threadIdx.x;
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int r = threadIdx.y + kThreadsY * k;
-    const int gy = oy + r, gx = ox + c;
-    float f[5];
-#pragma unroll
-    for (int m = 0; m < 5; ++m) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kWin; ++j) acc += c_win[j] * vb[m][r][c + j];
-      f[m] = acc;
-    }
-    if (gy < h && gx < w) {
-      const float u = f[0], v = f[1];
-      const float a1 = 2.0f * u * v + kC1;
-      const float a2 = 2.0f * (f[4] - u * v) + kC2;
-      const float b1 = u * u + v * v + kC1;
-      const float b2 = fmaxf((f[2] - u * u) + (f[3] - v * v) + kC2,
-                             0.5f * kC2);
-      const float inv_b1 = 1.0f / b1;
-      const float inv_b2 = 1.0f / b2;
-      const float inv_d = inv_b1 * inv_b2;
-      const float smap = a1 * a2 * inv_d;
-      const size_t o = base + static_cast<size_t>(gy) * w + gx;
-      c_u[o] = coef_scale * (2.0f * v * (a2 - a1) * inv_d
-                             - 2.0f * u * smap * (inv_b1 - inv_b2));
-      c_p[o] = coef_scale * (-smap * inv_b2);
-      c_r[o] = coef_scale * (2.0f * a1 * inv_d);
-      l1 += fabsf(sx[r + kRad][c + kRad] - sy[r + kRad][c + kRad]);
-      ss += smap;
-    }
-  }
-  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
-                  + blockIdx.x;
-  const float l1_sum = block_sum(l1, red);
-  __syncthreads();
-  const float ss_sum = block_sum(ss, red);
-  if (tid == 0) {
-    partial[2 * blk] = l1_sum;
-    partial[2 * blk + 1] = ss_sum;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ssim_grad_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 const float* __restrict__ c_u, const float* __restrict__ c_p,
-                 const float* __restrict__ c_r, int h, int w,
-                 float l1_scale, float* __restrict__ grad) {
-  __shared__ float sc[3][kHaloH][kHaloW];
-  __shared__ float vb[3][kTileH][kHaloW];
-
-  const int ch = blockIdx.z;
-  const int ox = blockIdx.x * kTileW;
-  const int oy = blockIdx.y * kTileH;
-  const size_t base = static_cast<size_t>(ch) * h * w;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-
-  for (int i = tid; i < kHaloH * kHaloW; i += kThreads) {
-    const int r = i / kHaloW, c = i % kHaloW;
-    const int gy = oy - kRad + r, gx = ox - kRad + c;
-    sc[0][r][c] = load_or_zero(c_u + base, gy, gx, h, w);
-    sc[1][r][c] = load_or_zero(c_p + base, gy, gx, h, w);
-    sc[2][r][c] = load_or_zero(c_r + base, gy, gx, h, w);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < kTileH * kHaloW; i += kThreads) {
-    const int r = i / kHaloW, c = i % kHaloW;
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kWin; ++j) acc += c_win[j] * sc[m][r + j][c];
-      vb[m][r][c] = acc;
-    }
-  }
-  __syncthreads();
-
-  const int c = threadIdx.x;
-  for (int k = 0; k < kRowsPerThread; ++k) {
-    const int r = threadIdx.y + kThreadsY * k;
-    const int gy = oy + r, gx = ox + c;
-    if (gy >= h || gx >= w) continue;
-    float f[3];
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kWin; ++j) acc += c_win[j] * vb[m][r][c + j];
-      f[m] = acc;
-    }
-    const size_t o = base + static_cast<size_t>(gy) * w + gx;
-    const float xv = x[o], yv = y[o];
-    const float d = xv - yv;
-    const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
-    grad[o] = f[0] + 2.0f * xv * f[1] + yv * f[2] + l1_scale * sgn;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ssim_loss_kernel(const float* __restrict__ partial, int n_blocks,
-                 double inv_n, double lam, float* __restrict__ loss) {
-  __shared__ double buf[2][kThreads];
-  const int tid = threadIdx.x;
-  double l1 = 0.0, ss = 0.0;
-  for (int i = tid; i < n_blocks; i += kThreads) {
-    l1 += static_cast<double>(partial[2 * i]);
-    ss += static_cast<double>(partial[2 * i + 1]);
-  }
-  buf[0][tid] = l1;
-  buf[1][tid] = ss;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      buf[0][tid] += buf[0][tid + s];
-      buf[1][tid] += buf[1][tid + s];
+  for (int k = kThreads / 2; k > 0; k >>= 1) {
+    if (t < k) {
+      red[0][t] += red[0][t + k];
+      red[1][t] += red[1][t + k];
     }
     __syncthreads();
   }
-  if (tid == 0) {
-    loss[0] = static_cast<float>((1.0 - lam) * buf[0][0] * inv_n
-                                 + lam * (1.0 - buf[1][0] * inv_n));
+  if (t == 0) {
+    loss[0] = static_cast<float>((1.0 - lam) * red[0][0] * inv_n
+                                 + lam * (1.0 - red[1][0] * inv_n));
+    *ticket = 0u;
   }
 }
 
 }  // namespace
 
-// Number of per-block partial pairs launch A writes for an h x w image.
-extern "C" int ssim_num_blocks(int h, int w) {
-  return 3 * ((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
+// Output columns a block owns: the wrapper sizes the grid from it.
+extern "C" int ssim_tile_width() { return kTileW; }
+
+// (resident blocks per SM, threads per block) on the current device.
+extern "C" int ssim_occupancy(int* blocks_per_sm, int* threads) {
+  *threads = kThreads;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, ssim_fused_kernel, kThreads, 0));
 }
 
-// Plain C entry point for ctypes. ``window`` is the host's 11 weights.
-// Scratch (c_u, c_p, c_r: [3, h, w]; partial: [2 * ssim_num_blocks]) and
-// outputs (grad [3, h, w], loss [1]) are allocated by the caller. Launches
-// on the caller's stream, does not synchronise, and returns the first CUDA
-// error (0 for none).
+// Plain C entry point for ctypes. ``window`` is the host's 11 weights,
+// passed on to the kernel by value. ``partial`` ([2 * blocks] float64) and
+// ``ticket`` ([1] uint32, zero before the first launch; the kernel leaves
+// it zero) are the caller's scratch, ``grad`` [3, h, w] and ``loss`` [1]
+// its outputs. The grid is ceil(w / ssim_tile_width()) x
+// ceil(h / rows_per_block) x 3. Launches on the caller's stream, does not
+// synchronise, and returns the first CUDA error (0 for none).
 extern "C" int ssim_launch(const float* pred, const float* target, int h,
-                           int w, float lam, const float* window,
-                           float* c_u, float* c_p, float* c_r,
-                           float* partial, float* grad, float* loss,
+                           int w, int rows_per_block, double lam,
+                           const float* window, double* partial,
+                           unsigned int* ticket, float* grad, float* loss,
                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_win, window,
-                                            kWin * sizeof(float), 0,
-                                            cudaMemcpyHostToDevice, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, 3);
+  Taps taps;
+  for (int j = 0; j < kWin; ++j) taps.w[j] = window[j];
+  const dim3 grid((w + kTileW - 1) / kTileW,
+                  (h + rows_per_block - 1) / rows_per_block, 3);
   const double n = 3.0 * static_cast<double>(h) * static_cast<double>(w);
-  ssim_fields_kernel<<<grid, block, 0, stream>>>(
-      pred, target, h, w, static_cast<float>(-lam / n), c_u, c_p, c_r,
-      partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssim_grad_kernel<<<grid, block, 0, stream>>>(
-      pred, target, c_u, c_p, c_r, h, w,
-      static_cast<float>((1.0 - lam) / n), grad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssim_loss_kernel<<<1, kThreads, 0, stream>>>(
-      partial, static_cast<int>(grid.x * grid.y * grid.z), 1.0 / n,
-      static_cast<double>(lam), loss);
+  ssim_fused_kernel<<<grid, kThreads, 0, stream>>>(
+      pred, target, h, w, rows_per_block, taps,
+      static_cast<float>(-lam / n), static_cast<float>((1.0 - lam) / n),
+      1.0 / n, lam, grad, partial, ticket, loss);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,7 @@ membership matches the reference bit for bit.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -85,14 +85,20 @@ def cut_counts(nodes: torch.Tensor, boxes: torch.Tensor,
 
 
 def expand_to_size(nodes: torch.Tensor, boxes: torch.Tensor, limit,
-                   cam_center: torch.Tensor, max_cut: int) -> Cut:
+                   cam_center: torch.Tensor,
+                   max_cut: Optional[int]) -> Cut:
     """Select the view-adaptive cut, compacted to capacity ``max_cut``:
-    ascending node indices padded with M; ``count`` is the true size."""
+    ascending node indices padded with M; ``count`` is the true size.
+    ``max_cut=None`` sizes the cut exactly (no padding, never truncated).
+    The selection's size is read on the host either way (one device
+    sync)."""
     m = nodes.shape[0]
     dev = nodes.device
     in_cut, w_all, _ = cut_mask(nodes, boxes, limit, cam_center)
     (sel,) = torch.nonzero(in_cut, as_tuple=True)
     count = torch.tensor(sel.shape[0], dtype=torch.int32, device=dev)
+    if max_cut is None:
+        max_cut = sel.shape[0]
     k = min(sel.shape[0], max_cut)
     idx = torch.full((max_cut,), m, dtype=torch.int64, device=dev)
     idx[:k] = sel[:k]

@@ -1,4 +1,4 @@
-"""Hierarchy serialization: ``.hier`` (port's copy of
+"""Hierarchy serialization: ``.hier`` and ``anchors.bin`` (port's copy of
 ``h3dgs_tpu/hierarchy/io.py``; byte-compatible both ways).
 
 Role-equivalent of the reference's ``gaussian_hierarchy._C.load_hierarchy``
@@ -61,3 +61,22 @@ def read_hier(path: str) -> Hierarchy:
             boxes=rd((m, 2, 3), "<f4"),
             anchors=rd((a,), "<i4"),
         )
+
+
+def write_anchors(path: str, anchors: np.ndarray) -> None:
+    """Standalone anchors.bin (count-prefixed i32 node indices)."""
+    anchors = np.asarray(anchors, np.int32)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<I", anchors.size))
+        anchors.astype("<i4").tofile(f)
+
+
+def read_anchors(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<I", f.read(4))
+        out = np.fromfile(f, dtype="<i4", count=n)
+        if out.size != n:
+            raise ValueError(
+                f"truncated anchors file {path}: expected {n} ids, "
+                f"got {out.size}")
+        return out

@@ -15,10 +15,12 @@ Row layout: [skybox | scaffold ring | scene points].
 ``state_from_hierarchy`` is the create_from_hier layout: hierarchy rows
 first, then the scaffold's skybox rows (their opacity sigmoid-activated,
 since post mode uses |x| activation on stored values); anchors become a
-locked-row mask.
+locked-row mask; ``update_hierarchy_from_state`` writes the trained rows
+back into the hierarchy.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -128,6 +130,22 @@ def state_from_hierarchy(hier, scaffold_dir: str = "",
     anchor_mask = np.zeros(capacity, bool)
     anchor_mask[hier.anchors] = True
     return state, anchor_mask
+
+
+def update_hierarchy_from_state(hier, state):
+    """Write post-optimized rows [0, M) back into the hierarchy (the
+    reference's save_hier path): alpha = |opacity|."""
+    m = hier.n_nodes
+
+    def rows(t):
+        return t[:m].detach().cpu().numpy()
+
+    shs = np.concatenate([rows(state.features_dc),
+                          rows(state.features_rest)], axis=1)
+    return dataclasses.replace(
+        hier, xyz=rows(state.xyz), shs=shs.astype(np.float32),
+        alpha=np.abs(rows(state.opacity)[:, 0]),
+        scaling=rows(state.scaling), rotation=rows(state.rotation))
 
 
 def init_from_pcd(

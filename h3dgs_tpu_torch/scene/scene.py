@@ -5,16 +5,19 @@ Loads the COLMAP scene, dumps ``cameras.json`` + ``input.ply``, computes
 the NeRF++ extent, initializes the model (pretrained point cloud or input
 point cloud with skybox / scaffold) on ``device``, and saves stage
 artifacts (``point_cloud/iteration_N/point_cloud.ply`` + ``pc_info.txt``,
-``exposure.json``) in the reference's formats. Not ported yet: the
-packed ``.pt`` format for scenes past 8M points and ``create_from_hier``
-(both raise ``NotImplementedError``).
+``exposure.json``, the post-optimized hierarchy ``<hier>_opt``) in the
+reference's formats. ``create_from_hier`` builds the post-training state
+from ``model_cfg.hierarchy`` (hierarchy rows, then the scaffold's skybox
+rows) with its anchor mask and the pretrained exposures found beside the
+hierarchy. Not ported yet: the packed ``.pt`` format for scenes past 8M
+points (raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -22,7 +25,9 @@ from ..config import ModelConfig, RuntimeConfig
 from ..io import meta as meta_io
 from ..io.ply import read_gaussian_ply, write_gaussian_ply
 from ..model import state as state_lib
-from ..model.init import init_from_pcd
+from ..hierarchy.io import read_hier, write_hier
+from ..model.init import (init_from_pcd, state_from_hierarchy,
+                          update_hierarchy_from_state)
 from ..utils.camera_math import fov2focal
 from ..utils.runtime import resolve_device
 from .dataset import SceneInfo, read_colmap_scene
@@ -36,10 +41,6 @@ class Scene:
                  runtime: Optional[RuntimeConfig] = None,
                  create_from_hier: bool = False, seed: int = 0,
                  load_iteration: Optional[int] = None, device=None):
-        if create_from_hier:
-            raise NotImplementedError(
-                "create_from_hier (hierarchy post-training) is not ported "
-                "yet")
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.runtime = runtime or RuntimeConfig()
@@ -55,6 +56,8 @@ class Scene:
         if load_iteration is None:
             self._dump_scene_metadata()
 
+        self.anchor_mask = None
+        self.hierarchy = None
         if load_iteration is not None:
             if load_iteration == -1:  # latest (searchForMaxIteration)
                 base = os.path.join(self.model_path, "point_cloud")
@@ -64,6 +67,11 @@ class Scene:
             pc_dir = os.path.join(self.model_path, "point_cloud",
                                   f"iteration_{load_iteration}")
             self.state = self._load_point_cloud_dir(pc_dir)
+        elif create_from_hier:
+            self.hierarchy = read_hier(model_cfg.hierarchy)
+            self.state, self.anchor_mask = state_from_hierarchy(
+                self.hierarchy, model_cfg.scaffold_file,
+                max_sh_degree=model_cfg.sh_degree, device=self.device)
         elif model_cfg.pretrained:
             self.state = self._load_point_cloud_dir(model_cfg.pretrained)
         else:
@@ -87,6 +95,17 @@ class Scene:
         self.image_names = [c.image_name for c in self.info.train_cameras]
         self.exposures = np.tile(np.eye(3, 4, dtype=np.float32)[None],
                                  (max(len(self.image_names), 1), 1, 1))
+        # The per-chunk stage's exposures, applied (never optimized) by
+        # post-training: beside the hierarchy's directory or inside it.
+        self.pretrained_exposures: Optional[Dict[str, np.ndarray]] = None
+        if create_from_hier:
+            hier_dir = os.path.dirname(model_cfg.hierarchy)
+            for cand in (os.path.join(hier_dir, "../exposure.json"),
+                         os.path.join(hier_dir, "exposure.json")):
+                if os.path.exists(cand):
+                    self.pretrained_exposures = meta_io.read_exposure_json(
+                        cand)
+                    break
 
     # ------------------------------------------------------------- io ---
     def _dump_scene_metadata(self):
@@ -138,11 +157,20 @@ class Scene:
                           shuffle=shuffle)
 
     def save(self, iteration: int, state: state_lib.GaussianState,
-             exposures: Optional[np.ndarray] = None) -> str:
-        """Stage artifacts (Scene.save of the reference)."""
+             exposures: Optional[np.ndarray] = None,
+             hierarchy=None) -> str:
+        """Stage artifacts (Scene.save of the reference). With
+        ``hierarchy``, the state's rows [0, M) go back into it and it is
+        written to ``<model_cfg.hierarchy>_opt``."""
         pc_dir = os.path.join(self.model_path, "point_cloud",
                               f"iteration_{iteration}")
         os.makedirs(pc_dir, exist_ok=True)
+        if hierarchy is not None:
+            out = self.cfg.hierarchy + "_opt"
+            write_hier(out, update_hierarchy_from_state(hierarchy, state),
+                       sh_degree=self.cfg.sh_degree)
+            return out
+
         meta_io.write_pc_info(os.path.join(pc_dir, "pc_info.txt"),
                               state.n_skybox)
         alive = state.alive.cpu().numpy()

@@ -1,21 +1,26 @@
-"""Host-side flat training loop (counterpart of
-``h3dgs_tpu/train/loop.py:train_flat``).
+"""Host-side training loops (counterpart of ``h3dgs_tpu/train/loop.py``:
+``train_flat`` and ``train_post``).
 
-Drives the train step (``train/step.py``) around a streaming view loader,
-with densification and opacity reset on their intervals, capacity growth
-when a densify pass runs out of slots, SH warm-up, the 50-iteration log
-line and artifact saving. Single process, one device. The JAX loop's
-adaptive entry and backward-truncation budgets are not carried over:
-they size the TPU's static entry buffers, and the port allocates exact
-entry counts. Checkpoints (``train/checkpoint.py``) and view data
-parallelism are later slices.
+``train_flat`` drives the train step (``train/step.py``) around a
+streaming view loader, with densification and opacity reset on their
+intervals, capacity growth when a densify pass runs out of slots, SH
+warm-up, the 50-iteration log line, artifact saving and checkpoints.
+``train_post`` fine-tunes a hierarchy (``train/post_step.py``): a sampled
+granularity per step, the pretrained exposure of the step's view,
+``<hier>_opt`` on save. Single process, one device. The JAX loops'
+adaptive entry, backward-truncation and cut-capacity budgets are not
+carried over: they size the TPU's static buffers, and the port allocates
+exact entry counts and exact cuts. View data parallelism is a later
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from ..config import FullConfig
@@ -23,6 +28,8 @@ from ..model import state as state_lib
 from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig
 from ..scene.scene import Scene
+from . import checkpoint as ckpt_lib
+from .post_step import make_post_train_step, sample_limit
 from .step import (batch_to_device, densify_step, encode_view,
                    make_train_step, reset_opacity_step)
 
@@ -93,11 +100,15 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
     Coarse variant: sh degree 1, frozen xyz, no depth loss / exposure step
     / densification, shrink threshold 0.1, a random background per step.
     ``step_cb(it, out)``: called after every step with its StepOutput.
+    ``checkpoint_iterations`` write ``<model_path>/chkpnt<it>.npz``
+    (``train/checkpoint.py``); ``start_checkpoint`` resumes from one at
+    the iteration after its own. As in the reference, a checkpoint holds
+    the state, both optimizers, the exposures and the iteration, not the
+    view stream's position nor the ``torch.Generator``'s state: a resumed
+    run walks the views from the start of their order and redraws its
+    densification noise and coarse backgrounds.
     Returns the final (state, exposure) on the scene's device.
     """
-    if checkpoint_iterations or start_checkpoint:
-        raise NotImplementedError(
-            "checkpoints (train/checkpoint.py) are not ported yet")
     if cfg.runtime.data_devices > 1:
         raise NotImplementedError(
             "view data parallelism (data_devices > 1) is not ported yet")
@@ -121,6 +132,11 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
     opt = adam_lib.init(state.trainable_dict())
     exposure = torch.as_tensor(scene.exposures, device=device)
     exp_opt = adam_lib.init({"exposure": exposure})
+    first_iter = 0
+    if start_checkpoint:
+        state, opt, exposure, exp_opt, first_iter = ckpt_lib.load_flat(
+            start_checkpoint, state)
+        print(f"restored checkpoint at iteration {first_iter}")
 
     bg = (torch.ones(3, device=device) if cfg.model.white_background
           else torch.zeros(3, device=device))
@@ -132,7 +148,7 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
     log = TrainLog(t_start=time.time())
 
     try:
-        for it in range(1, opt_cfg.iterations + 1):
+        for it in range(first_iter + 1, opt_cfg.iterations + 1):
             if viewer is not None:
                 viewer.poll(state, max_sh, r_cfg, bg)
             _, batch = next(prefetch)
@@ -191,6 +207,107 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
             if it in save_iterations:
                 path = scene.save(it, state, exposure.cpu().numpy())
                 print(f"[{it}] saved -> {path}", flush=True)
+            if checkpoint_iterations and it in checkpoint_iterations:
+                ckpt_lib.save_flat(
+                    os.path.join(scene.model_path, f"chkpnt{it}.npz"),
+                    state, opt, exposure, exp_opt, it)
     finally:
         stream.close()
     return state, exposure
+
+
+def train_post(cfg: FullConfig, scene: Scene,
+               save_iterations: Optional[List[int]] = None,
+               checkpoint_iterations: Optional[List[int]] = None,
+               start_checkpoint: str = "",
+               step_cb: Optional[Callable] = None):
+    """Hierarchy fine-tune over a ``Scene(create_from_hier=True)``.
+
+    Per step: a log-uniform granularity limit, the view's pretrained
+    exposure row (identity when ``exposure.json`` lacks the view), SH
+    degree ``min(it // 1000, max_sh)``, one post step. Every 50
+    iterations a log line with the last step's cut size; on
+    ``save_iterations`` ``scene.save(..., hierarchy=)`` writes
+    ``<hier>_opt``; checkpoints hold a zero exposure and a fresh exposure
+    optimizer (post-training has none).
+
+    The reference sizes the cut to a power-of-two bucket (``max_cut``,
+    its ``initial_max_cut`` argument) that it regrows after a step has
+    rendered a truncated cut, because its compiled step needs static
+    shapes. The port's step sizes every cut exactly, so no cut is ever
+    truncated and there is no bucket to start or to grow:
+    ``initial_max_cut`` has no counterpart.
+    ``step_cb(it, out)``: called after every step with its
+    PostStepOutput. Returns the final state on the scene's device.
+    """
+    if cfg.runtime.data_devices > 1:
+        raise NotImplementedError(
+            "view data parallelism (data_devices > 1) is not ported yet")
+    opt_cfg = cfg.opt
+    r_cfg = raster_config(cfg)
+    h = scene.hierarchy
+    if h is None:
+        raise ValueError("train_post requires --hierarchy "
+                         "(Scene(create_from_hier=True))")
+    save_iterations = save_iterations or [opt_cfg.iterations]
+    max_sh = cfg.model.sh_degree
+    device = scene.device
+
+    step = make_post_train_step(
+        opt_cfg, r_cfg, skybox_locked=cfg.model.skybox_locked,
+        use_exposure=scene.pretrained_exposures is not None)
+
+    state = scene.state
+    opt = adam_lib.init(state.trainable_dict())
+    first_iter = 0
+    if start_checkpoint:
+        state, opt, _exp, _eo, first_iter = ckpt_lib.load_flat(
+            start_checkpoint, state)
+        print(f"restored checkpoint at iteration {first_iter}")
+    nodes = torch.as_tensor(h.nodes, device=device)
+    boxes = torch.as_tensor(h.boxes, device=device)
+    amask = torch.as_tensor(scene.anchor_mask, device=device)
+    bg = (torch.ones(3, device=device) if cfg.model.white_background
+          else torch.zeros(3, device=device))
+    spatial_lr = float(scene.cameras_extent)
+    stream = scene.train_stream(num_workers=8)
+    prefetch = DevicePrefetcher(stream, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    log = TrainLog(t_start=time.time())
+    pre_exp = scene.pretrained_exposures or {}
+    identity = np.eye(3, 4, dtype=np.float32)
+
+    try:
+        for it in range(first_iter + 1, opt_cfg.iterations + 1):
+            batch_host, batch = next(prefetch)
+            name = scene.image_names[int(batch_host.image_idx)]
+            exp_row = torch.as_tensor(
+                np.asarray(pre_exp.get(name, identity), np.float32),
+                device=device)
+            limit = sample_limit(gen)
+            sh_deg = min(it // 1000, max_sh)
+            out = step(state, opt, batch, nodes, boxes, amask, exp_row,
+                       limit, it, bg, spatial_lr, sh_deg)
+            state, opt = out.state, out.opt
+            log.update(out.photo_loss, 0.0)
+            if step_cb is not None:
+                step_cb(it, out)
+            if it % 50 == 0 or it == opt_cfg.iterations:
+                log.sync()
+                rate = it / max(time.time() - log.t_start, 1e-9)
+                print(f"[{it}/{opt_cfg.iterations}] "
+                      f"loss={log.ema_photo:.5f} cut={int(out.cut_size)} "
+                      f"it/s={rate:.2f}", flush=True)
+            if it in save_iterations:
+                path = scene.save(it, state, hierarchy=h)
+                print(f"[{it}] saved -> {path}", flush=True)
+            if checkpoint_iterations and it in checkpoint_iterations:
+                zero_exp = torch.zeros((1, 3, 4), device=device)
+                ckpt_lib.save_flat(
+                    os.path.join(scene.model_path, f"chkpnt{it}.npz"),
+                    state, opt, zero_exp,
+                    adam_lib.init({"exposure": zero_exp}), it)
+    finally:
+        stream.close()
+    return state

@@ -1,6 +1,11 @@
-"""Hierarchy-cut rendering (counterpart of the rendering half of
-``h3dgs_tpu/train/post_step.py``: ``render_cut``, ``select_cut_gaussians``
-and ``splat_cut_gaussians``; the post-training step is a later slice).
+"""Hierarchy-cut rendering and the hierarchy fine-tuning step
+(counterpart of ``h3dgs_tpu/train/post_step.py``).
+
+One post step: select the view-adaptive cut for a sampled granularity
+limit, lerp child and parent attributes (differentiable LOD), splat,
+photometric loss, one ``torch.autograd.grad`` through the blend (K1
+forward, K2 backward), the projection and the interpolation table, zero
+the anchor and skybox gradients, dense Adam.
 
 Row layout (create_from_hier parity): hierarchy nodes occupy rows [0, M);
 skybox rows come LAST and are appended verbatim with weight 1; opacity
@@ -8,20 +13,46 @@ activation is |x|.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
+from ..config import OptimizationConfig
 from ..hierarchy import cut as cut_lib
 from ..model.state import GaussianState
+from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig, rasterize
 from ..scene.camera import Camera
-from .step import apply_exposure
+from ..utils import losses as loss_lib
+from ..utils import schedules
+from .step import ViewBatch, apply_exposure, decode_view
+
+LIMIT_MIN = 0.005
+LIMIT_MAX = 0.1
+
+
+def sample_limit(generator: torch.Generator) -> torch.Tensor:
+    """Log-uniform granularity target in [LIMIT_MIN, LIMIT_MAX], a scalar
+    on the generator's device."""
+    u = torch.rand((), generator=generator, device=generator.device)
+    lo, hi = math.log2(LIMIT_MIN), math.log2(LIMIT_MAX)
+    return torch.exp2(u * (hi - lo) + lo)
+
+
+class PostStepOutput(NamedTuple):
+    state: GaussianState
+    opt: adam_lib.AdamState
+    photo_loss: torch.Tensor
+    cut_size: torch.Tensor      # true cut size
+    n_visible: torch.Tensor
+    n_rendered: int             # cut rows splatted (< cut_size: truncated)
 
 
 def render_cut(state: GaussianState, nodes: torch.Tensor,
                boxes: torch.Tensor, camera: Camera, limit, sh_degree: int,
-               bg: torch.Tensor, raster_cfg: RasterizeConfig, max_cut: int,
+               bg: torch.Tensor, raster_cfg: RasterizeConfig,
+               max_cut: Optional[int],
                exposure: Optional[torch.Tensor] = None,
                params: Optional[dict] = None):
     """Select cut -> interpolate -> splat (render_post equivalent)."""
@@ -37,8 +68,10 @@ def render_cut(state: GaussianState, nodes: torch.Tensor,
 
 
 def select_cut_gaussians(state: GaussianState, nodes, boxes, cam_center,
-                         limit, max_cut: int, params=None, table=None):
+                         limit, max_cut: Optional[int], params=None,
+                         table=None):
     """Cut selection + LOD interpolation + skybox append -> flat splats.
+    ``max_cut=None`` sizes the cut exactly.
 
     ``table``: optional cached interp_table(params) (the viewer's params
     are static, so interpolation is gather-only).
@@ -73,3 +106,71 @@ def splat_cut_gaussians(xyz, scales, quats, opac, shs, camera: Camera,
         out["render"] = apply_exposure(out["render"], exposure)
     out["render"] = torch.clamp(out["render"], 0.0, 1.0)
     return out
+
+
+def make_post_train_step(opt_cfg: OptimizationConfig,
+                         raster_cfg: RasterizeConfig,
+                         max_cut: Optional[int] = None,
+                         skybox_locked: bool = True,
+                         use_exposure: bool = True):
+    """Build the post-optimization step.
+
+    The exposure row is the *pretrained* per-image transform (loaded from
+    exposure.json): applied, never optimized. ``max_cut=None`` (the
+    training loop's choice) sizes every cut exactly, so none is truncated;
+    a number pads or truncates to that capacity as the reference's static
+    shapes do (parity tests pass the reference's). The step is a plain
+    eager function; the update runs under ``torch.no_grad()`` and returns
+    new tensors.
+    """
+
+    def step(state: GaussianState, opt: adam_lib.AdamState,
+             batch: ViewBatch, nodes: torch.Tensor, boxes: torch.Tensor,
+             anchor_mask: torch.Tensor, exposure_row: torch.Tensor,
+             limit, iteration, bg: torch.Tensor, spatial_lr_scale,
+             sh_degree: int) -> PostStepOutput:
+        batch = decode_view(batch)
+        exp_row = exposure_row if use_exposure else None
+        names = list(state.trainable_dict())
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in state.trainable_dict().items()}
+
+        with torch.enable_grad():
+            out = render_cut(state, nodes, boxes, batch.camera, limit,
+                             sh_degree, bg, raster_cfg, max_cut,
+                             exposure=exp_row, params=params)
+            image = out["render"] * batch.alpha_mask
+            photo = loss_lib.photometric_loss(image, batch.gt_image,
+                                              opt_cfg.lambda_dssim)
+            grads = torch.autograd.grad(photo, [params[k] for k in names],
+                                        allow_unused=True,
+                                        materialize_grads=True)
+
+        with torch.no_grad():
+            g_params = dict(zip(names, grads))
+            # --- anchor + skybox gradient locking ---
+            locked = anchor_mask
+            if skybox_locked and state.n_skybox:
+                locked = locked | state.locked_rows_mask()
+            for k in g_params:
+                m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
+                g_params[k] = torch.where(m, torch.zeros_like(g_params[k]),
+                                          g_params[k])
+
+            # --- dense Adam (eps 1e-15) ---
+            lrs = schedules.gaussian_lr_dict(opt_cfg, float(iteration))
+            lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
+            all_rows = torch.ones(state.capacity, dtype=torch.bool,
+                                  device=state.device)
+            new_params, new_opt = adam_lib.sparse_adam_update(
+                state.trainable_dict(), g_params, opt, lrs, all_rows)
+            new_state = state.replace_trainable(new_params)
+
+        cut = out["cut"]
+        return PostStepOutput(
+            state=new_state, opt=new_opt, photo_loss=photo.detach(),
+            cut_size=cut.count, n_visible=out["visibility_filter"].sum(),
+            n_rendered=int(cut.indices.shape[0]) if max_cut is None
+            else min(int(cut.indices.shape[0]), int(cut.count)))
+
+    return step

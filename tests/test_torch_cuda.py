@@ -180,6 +180,55 @@ def test_ssim_kernel_matches_plain(h, w, dark):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dark", [
+    (37, 53, False), (37, 53, True), (129, 217, True), (900, 1600, False),
+    (900, 1600, True), (1080, 1920, False), (1080, 1920, True)])
+def test_ssim_kernel_against_float64(h, w, dark):
+    """Sizes that are no multiple of the kernel's strip (108 columns) or
+    block, natural-like and dark images: the kernel is no farther from
+    the float64 plain version than the float32 plain version is (the loss
+    up to 1e-9, the mean of the map's float32 roundings near 1, plus two
+    float32 steps at the loss's value: finer than that two float32
+    results cannot be ranked; the gradient in root mean square up to a
+    twentieth; its
+    worst pixel, a maximum over the image of errors the map's small
+    denominators amplify alike in both, within a factor of two), two
+    launches agree bit for bit, and the ticket counter is back at zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from h3dgs_tpu_torch.ops import ssim
+
+    gen = torch.Generator(device="cuda").manual_seed(h * w + dark)
+    if dark:
+        x = 0.02 + 0.002 * torch.rand((3, h, w), generator=gen,
+                                      device="cuda")
+        y = 0.02 + 0.002 * torch.rand((3, h, w), generator=gen,
+                                      device="cuda")
+    else:
+        y = torch.nn.functional.avg_pool2d(
+            torch.rand((1, 3, h, w), generator=gen, device="cuda"), 9, 1,
+            4)[0].contiguous()
+        x = (y + 0.05 * torch.randn((3, h, w), generator=gen,
+                                    device="cuda")).clamp(0, 1)
+    loss, grad = ssim.fused_photometric_forward(x, y, 0.2)
+    loss2, grad2 = ssim.fused_photometric_forward(x, y, 0.2)
+    torch.cuda.synchronize()
+    assert float(loss) == float(loss2) and torch.equal(grad, grad2)
+    assert all(int(t) == 0 for t in ssim._tickets.values())
+    p_loss, p_grad = ssim.fused_photometric_plain(x, y, 0.2)
+    r_loss, r_grad = ssim.fused_photometric_plain(x.double(), y.double(),
+                                                  0.2)
+    assert abs(float(loss) - float(r_loss)) <= \
+        abs(float(p_loss) - float(r_loss)) + 1e-9 + \
+        2 * torch.finfo(torch.float32).eps * float(r_loss)
+    k_d, p_d = grad.double() - r_grad, p_grad.double() - r_grad
+    assert float(k_d.pow(2).mean().sqrt()) <= \
+        1.05 * float(p_d.pow(2).mean().sqrt())
+    assert float(k_d.abs().max()) <= 2.0 * float(p_d.abs().max())
+    assert torch.isfinite(grad).all()
+
+
+@pytest.mark.cuda
 def test_ssim_kernel_rejects_bad_inputs():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

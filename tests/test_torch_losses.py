@@ -108,3 +108,37 @@ def test_fused_loss_autograd_and_gate(monkeypatch):
     assert not calls                                    # auto: not on CPU
     tloss.photometric_loss(t_(x), t_(y), fused=True)
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("h,w,threads,rows", [(11, 11, 32, 16),
+                                              (23, 40, 24, 5),
+                                              (30, 13, 40, 7)])
+def test_fused_walk_matches_plain(h, w, threads, rows):
+    """The kernel's walk (``fused_photometric_walk``: strips of
+    ``threads`` columns, blocks of ``rows`` rows, a row a step, two ring
+    accumulators) against the plain version in float64, at sizes that are
+    no multiple of the strip or the block: loss and gradient within 1e-12
+    (the two differ only in the order of the separable passes)."""
+    x, y = _pair(h * w, h=h, w=w)
+    xt, yt = t_(x).double(), t_(y).double()
+    want_loss, want_grad = tssim.fused_photometric_plain(xt, yt, 0.2)
+    loss, grad = tssim.fused_photometric_walk(xt, yt, 0.2, threads=threads,
+                                              rows_per_block=rows)
+    assert abs(float(loss) - float(want_loss)) <= 1e-12
+    assert float((grad - want_grad).abs().max()) <= 1e-12
+    assert float(want_grad.abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("h,w", [(900, 1600), (1080, 1920), (11, 11),
+                                 (64, 64), (37, 2000)])
+def test_plan_strips_covers_the_image(h, w):
+    """The kernel's grid: the strips cover the width, the blocks the
+    height with none empty, one wave of resident blocks where the image
+    allows it, and no block of fewer than MIN_ROWS_PER_BLOCK rows unless
+    the image is shorter."""
+    tile_w, slots = 108, 3 * 132
+    strips, rows, down = tssim.plan_strips(h, w, tile_w, slots)
+    assert (strips - 1) * tile_w < w <= strips * tile_w
+    assert (down - 1) * rows < h <= down * rows
+    assert rows >= min(h, tssim.MIN_ROWS_PER_BLOCK)
+    assert 3 * strips * down <= max(slots, 3 * strips)

@@ -234,8 +234,9 @@ def test_scene_and_load_view_match_jax(colmap_dir, tmp_path, resolution):
 
 def test_train_single_cpu_and_artifacts(colmap_dir, tmp_path, monkeypatch):
     """``train_single.main`` on the CPU: it trains, writes the reference's
-    artifacts, and the JAX Scene reads the saved point cloud back; without
-    CUDA and without --device it raises."""
+    artifacts and the checkpoint it is asked for, and the JAX Scene reads
+    the saved point cloud back; without CUDA and without --device it
+    raises."""
     out = str(tmp_path / "out")
     argv = ["-s", colmap_dir, "-m", out, "--depths", "depths",
             "--iterations", "3", "--skybox_num", "8", "--skybox_locked",
@@ -243,10 +244,9 @@ def test_train_single_cpu_and_artifacts(colmap_dir, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_single.main(argv)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        train_single.main(argv + ["--device", "cpu",
-                                  "--checkpoint_iterations", "2"])
-    train_single.main(argv + ["--device", "cpu"])
+    train_single.main(argv + ["--device", "cpu",
+                              "--checkpoint_iterations", "2"])
+    assert os.path.exists(os.path.join(out, "chkpnt2.npz"))
     # The default (viewer on) listens and trains on without a client.
     train_single.main([a for a in argv if a != "--disable_viewer"]
                       + ["--device", "cpu", "--port", "0", "-m",
