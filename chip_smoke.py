@@ -123,38 +123,33 @@ BWD_OPS_PER_PAIR = 20
 BWD_OPS_PER_CONTRIB = 40
 BWD_TOL_REL = 1e-3
 BWD_MIN_COSINE = 0.9999
-# On the deepest tile alone, against float64, the kernel (T by division)
-# and the float32 plain version (a suffix by total minus prefix) both stand
-# at about 1e-3 of the tile's largest gradient at worst. The kernel is
-# mostly two orders closer, but the trained view differs from run to run
-# (atomics in training) and once read 1.3 times the plain version's
-# distance; a drift of the division would show as orders of magnitude.
-BWD_F64_FACTOR = 4.0
+# H7, on the deepest tile alone, against float64: the kernel (T by
+# division) may be no farther than the float32 plain version (a suffix by
+# total minus prefix) in any of H7_REPS launches on the same inputs. Pixels
+# whose float32 and float64 forward walks took different entries are left
+# out of the cotangents: one skipped entry changes the final T by 1/255 of
+# itself at least, rounding over the deepest walk by far less than
+# H7_T_REL.
+H7_T_REL = 1e-3
+H7_REPS = 4
 # K3: about 400 FP32 operations per channel pixel (8 blurred fields x 2
 # passes x 11 taps x 2, plus the map and the coefficients).
 SSIM_OPS_PER_VALUE = 400
-# K3's loss is held to the float64 plain version within 5e-7 (the bound of
-# the reference's own kernel test, tests/test_pallas_ssim.py), and to the
-# float32 plain version within that plus the float32 plain version's own
-# distance from float64 (about 1e-6 on a trained view: its rounded
-# products bias the map; the kernel's fused multiply-adds do not).
+# K3's limits come from two contracts, none from this kernel's readings.
+# The reference's own kernel test (tests/test_pallas_ssim.py: uniform
+# random images, the kernel against the float32 plain loss): loss within
+# SSIM_LOSS_TOL, gradient within SSIM_REF_GRAD_TOL_REL of its largest
+# value; held here at both sizes on such images. On a trained view and on
+# dark images small denominators of the map amplify roundings (the float32
+# plain version itself stands 2e-5 to 6e-5 of max |g| from float64 at its
+# worst pixel), so there the gradient is held within SSIM_GRAD_TOL_REL of
+# max |g| (the port's tolerance for this kernel since its first version)
+# of both plain versions, the loss within SSIM_LOSS_TOL of the float64
+# one, and the gradient's root-mean-square distance from float64 may not
+# exceed the float32 plain version's.
 SSIM_LOSS_TOL = 5e-7
+SSIM_REF_GRAD_TOL_REL = 5e-6
 SSIM_GRAD_TOL_REL = 1e-4
-# Against the float64 plain version the kernel may be no farther than the
-# float32 plain version is: so for the loss (up to 1e-9, the mean of the
-# map's float32 roundings near 1, plus two float32 steps at the loss's
-# value: two float32 results cannot be ranked finer than that) and for
-# the gradient's root-mean-square error
-# (up to a twentieth: on dark images the map's algebra, the same
-# operations in both versions, makes nearly all of it). The gradient's
-# worst pixel is the maximum over millions of pixels of rounding errors
-# that the map's small denominators amplify alike in both versions: which
-# of the two maxima is the larger changes from image to image, so it is
-# held within a factor of two.
-SSIM_F64_LOSS_SLACK = 1e-9
-SSIM_F64_LOSS_STEPS = 2
-SSIM_F64_GRAD_RMS_FACTOR = 1.05
-SSIM_F64_GRAD_MAX_FACTOR = 2.0
 
 
 def log(msg: str) -> None:
@@ -620,10 +615,15 @@ def run_train_cli(argv, fused: bool = False):
 
 def run_post_cli(argv, fused: bool = False):
     """``train_post.main(argv)``, observed through ``train_post``'s step
-    callback: per-step losses, cut sizes and rendered rows, a CUDA event
-    after every step, the whole state before and the locked rows' mask,
-    the final state."""
+    callback: per-step losses and cut sizes, a CUDA event after every
+    step, the whole state before and the locked rows' mask, the final
+    state. Under "cuts", per step: the cut size the step reported, the
+    rows it handed to the rasterizer less the skybox, and the cut mask's
+    count computed here afterwards from the step's camera and limit (the
+    three are equal unless a cut was truncated)."""
     from h3dgs_tpu_torch.cli import train_post
+    from h3dgs_tpu_torch.hierarchy.cut import cut_mask
+    from h3dgs_tpu_torch.train import post_step
 
     def observed_of(orig, rec):
         def observed(cfg, scene, **kw):
@@ -634,22 +634,46 @@ def run_post_cli(argv, fused: bool = False):
             rec["n_anchor"] = int(scene.anchor_mask.sum())
             rec["state0"] = {k: v.clone()
                              for k, v in st.trainable_dict().items()}
-            rec["cuts"] = []
+            reported, selected, splatted = [], [], []
             record = _step_recorder(rec)
 
             def cb(it, out):
                 record(it, out)
-                rec["cuts"].append((out.cut_size, out.n_rendered))
+                reported.append(out.cut_size)
 
-            state = orig(cfg, scene, step_cb=cb, **kw)
+            select0 = post_step.select_cut_gaussians
+            splat0 = post_step.splat_cut_gaussians
+
+            def select(state, nodes, boxes, cam_center, limit, *a, **k):
+                selected.append((cam_center, limit))
+                return select0(state, nodes, boxes, cam_center, limit, *a,
+                               **k)
+
+            def splat(xyz, *a, **k):
+                splatted.append(int(xyz.shape[0]))
+                return splat0(xyz, *a, **k)
+
+            post_step.select_cut_gaussians = select
+            post_step.splat_cut_gaussians = splat
+            try:
+                state = orig(cfg, scene, step_cb=cb, **kw)
+            finally:
+                post_step.select_cut_gaussians = select0
+                post_step.splat_cut_gaussians = splat0
+            nodes = torch.as_tensor(scene.hierarchy.nodes, device=st.device)
+            boxes = torch.as_tensor(scene.hierarchy.boxes, device=st.device)
+            assert len(reported) == len(selected) == len(splatted)
+            rec["cuts"] = [
+                (int(c), rows - st.n_skybox,
+                 int(cut_mask(nodes, boxes, limit, center)[0].sum()))
+                for c, rows, (center, limit)
+                in zip(reported, splatted, selected)]
             rec["state"], rec["scene"] = state, scene
             return state
         return observed
 
-    rec = _run_observed(train_post.main, "train_post", observed_of, argv,
-                        fused)
-    rec["cuts"] = [(int(c), int(r)) for c, r in rec["cuts"]]
-    return rec
+    return _run_observed(train_post.main, "train_post", observed_of, argv,
+                         fused)
 
 
 def train_stage_times(state, batch, sh_degree: int, opt_cfg, reps: int = 5):
@@ -881,14 +905,57 @@ def _close_grads(got, want):
     return rel, cos, scale
 
 
+H7_OUTPUTS = ("means2d", "conic", "rgb", "opacity", "inv_depth")
+
+
+def h7_forward_agreement(args, fwd, h, w):
+    """Where the float32 forward ``fwd`` (K1's color, inverse depth, final
+    T, last entry) and the plain forward in float64 walked the same
+    entries. A pixel's walk is a chain of discrete tests (alpha >= 1/255,
+    T >= 1e-4 after the entry); where an alpha or a T lies within rounding
+    of its threshold the two float types decide differently, and from
+    there on they differentiate different functions: the last entry
+    differs, or the final T by at least the skipped entry's 1/255. Returns
+    (agree [H, W] bool, the float64 forward)."""
+    from h3dgs_tpu_torch.ops.blend import blend_plain
+
+    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    fwd64 = blend_plain(*a64, h, w)
+    t32, t64 = fwd[2].double(), fwd64[2]
+    agree = (fwd[3] == fwd64[3]) & ((t32 - t64).abs() <= H7_T_REL * t64)
+    return agree, fwd64
+
+
+def h7_distances(args, fwd, fwd64, cot, keep, h, w, reps: int = 1):
+    """K2 (``reps`` launches on the same inputs) and the float32 plain
+    backward, each against the float64 plain backward, with the
+    cotangents ``cot`` zeroed outside ``keep``. Returns max |d| / max |g|
+    per output (H7_OUTPUTS): {"kernel": [per launch], "plain": [...]}."""
+    from h3dgs_tpu_torch.ops.blend import (blend_backward,
+                                           blend_backward_plain)
+
+    masked = [torch.where(keep, c, torch.zeros_like(c)).contiguous()
+              for c in cot]
+    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    g64 = blend_backward_plain(*a64, *fwd64[:3],
+                               *(m.double() for m in masked), h, w)
+    gp = blend_backward_plain(*args, *fwd[:3], *masked, h, w)
+    out = {"plain": [_close_grads(b, r)[0] for b, r in zip(gp, g64)],
+           "kernel": []}
+    for _ in range(reps):
+        gk = blend_backward(*args, *fwd, *masked, h, w)
+        out["kernel"].append([_close_grads(a, r)[0]
+                              for a, r in zip(gk, g64)])
+    return out
+
+
 def check_blend_bwd(k2_inputs, launches):
     """K2 against blend_backward_plain on one training view's inputs and
     the loss's own cotangents; and on the deepest tile alone (T by
     division over the longest walk, hazard H7)."""
     from h3dgs_tpu_torch.ops.blend import (_blend_backward_cuda,
                                            _launch_blend_fwd, blend_backward,
-                                           blend_backward_plain, blend_plain,
-                                           tile_order)
+                                           blend_backward_plain, tile_order)
 
     args, color, invd, final_t, last, cot, h, w = k2_inputs[:8]
     g_color, g_invd, g_t = cot
@@ -939,36 +1006,32 @@ def check_blend_bwd(k2_inputs, launches):
         f"|g| < 1e-12: {mask_eq}")
     assert mask_eq
 
-    # H7: the deepest tile alone (cotangents zero on every other pixel, so
-    # only its entries receive gradient), the kernel and the float32 plain
-    # version each against the plain version in float64.
+    # H7: the deepest tile alone, the kernel and the float32 plain version
+    # each against the plain version in float64.
     tile_count = args[7]
     deep = int(torch.argmax(tile_count))
     tiles_x = -(-w // 16)
     ty, tx = divmod(deep, tiles_x)
     keep = torch.zeros((h, w), dtype=torch.bool, device=g_t.device)
     keep[ty * 16:(ty + 1) * 16, tx * 16:(tx + 1) * 16] = True
-    masked = [torch.where(keep, c, torch.zeros_like(c)).contiguous()
-              for c in (g_color, g_invd, g_t)]
-    gk = blend_backward(*args, color, invd, final_t, last, *masked, h, w)
-    gp = blend_backward_plain(*args, color, invd, final_t, *masked, h, w)
-    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
-    fwd64 = blend_plain(*a64, h, w)
-    g64 = blend_backward_plain(*a64, *fwd64[:3], *(m.double()
-                                                   for m in masked), h, w)
-    worst_k = worst_p = 0.0
-    for name, a, b, r in zip(("means2d", "conic", "rgb", "opacity",
-                              "inv_depth"), gk, gp, g64):
-        dk, _, scale = _close_grads(a, r)
-        dp, _, _ = _close_grads(b, r)
-        worst_k, worst_p = max(worst_k, dk), max(worst_p, dp)
-        log(f"blend_bwd H7, deepest tile ({int(tile_count[deep])} entries), "
-            f"{name}: max |d| / max |g| against float64: kernel {dk:.3e}, "
-            f"float32 plain {dp:.3e}")
-    # T by division must not drift: the kernel's worst output stays
-    # within BWD_F64_FACTOR of the float32 plain version's worst distance
-    # from float64.
-    assert worst_k <= BWD_F64_FACTOR * worst_p, (worst_k, worst_p)
+    fwd = (color, invd, final_t, last)
+    agree, fwd64 = h7_forward_agreement(args, fwd, h, w)
+    n_left_out = int((keep & ~agree).sum())
+    d = h7_distances(args, fwd, fwd64, cot, keep & agree, h, w,
+                     reps=H7_REPS)
+    for name, dk, dp in zip(H7_OUTPUTS, d["kernel"][0], d["plain"]):
+        log(f"blend_bwd H7, deepest tile ({int(tile_count[deep])} entries, "
+            f"{n_left_out} pixels of differing float32 and float64 walks "
+            f"left out), {name}: max |d| / max |g| against float64: kernel "
+            f"{dk:.3e}, float32 plain {dp:.3e}")
+    per_launch = [max(r) for r in d["kernel"]]
+    worst_k, worst_p = max(per_launch), max(d["plain"])
+    log(f"blend_bwd H7: worst output over {H7_REPS} launches on the same "
+        f"inputs, kernel {min(per_launch):.3e} to {worst_k:.3e}, float32 "
+        f"plain {worst_p:.3e}")
+    # T by division must not drift: in no launch is the kernel's worst
+    # output farther from float64 than the float32 plain version's.
+    assert worst_k <= worst_p, (worst_k, worst_p)
 
     ms = time_ms(kern_saved, 20)
     wrapper_ms = time_ms(kern, 20)
@@ -1001,9 +1064,9 @@ def check_blend_bwd(k2_inputs, launches):
 
 def _ssim_against_float64(pred, target, what: str):
     """The kernel and the float32 plain version, each against the float64
-    plain version on the same inputs; asserts the kernel no farther (see
-    SSIM_F64_*). Returns the kernel's (loss, grad) and the float32 plain
-    version's."""
+    plain version on the same inputs (limits: see SSIM_LOSS_TOL). Returns
+    the kernel's (loss, grad), the float32 plain version's, and the
+    latter's loss distance from float64."""
     from h3dgs_tpu_torch.ops.ssim import (fused_photometric_forward,
                                           fused_photometric_plain)
 
@@ -1026,21 +1089,40 @@ def _ssim_against_float64(pred, target, what: str):
         f" max |d| / max |g| kernel {k_grad:.3e}, float32 plain "
         f"{p_grad:.3e}")
     assert torch.isfinite(grad).all() and math.isfinite(float(loss)), what
-    step = torch.finfo(torch.float32).eps * abs(float(ref_loss))
-    assert k_loss <= p_loss + SSIM_F64_LOSS_SLACK \
-        + SSIM_F64_LOSS_STEPS * step, (what, k_loss, p_loss)
     assert k_loss <= SSIM_LOSS_TOL, (what, k_loss)
-    assert k_rms <= SSIM_F64_GRAD_RMS_FACTOR * p_rms, (what, k_rms, p_rms)
-    assert k_grad <= SSIM_F64_GRAD_MAX_FACTOR * p_grad, (what, k_grad,
-                                                         p_grad)
+    assert k_grad <= SSIM_GRAD_TOL_REL, (what, k_grad)
+    assert k_rms <= p_rms, (what, k_rms, p_rms)
     return (loss, grad), (want_loss, want_grad), p_loss
+
+
+def _ssim_reference_contract(h: int, w: int):
+    """The reference's kernel test at the card's sizes: uniform random
+    images from a numpy seed, the kernel against the float32 plain
+    version."""
+    from h3dgs_tpu_torch.ops.ssim import (fused_photometric_forward,
+                                          fused_photometric_plain)
+
+    rng = np.random.default_rng(h * 1000 + w)
+    x, y = (torch.as_tensor(rng.uniform(0, 1, (3, h, w)).astype(np.float32),
+                            device=DEVICE) for _ in range(2))
+    loss, grad = fused_photometric_forward(x, y, 0.2)
+    want_loss, want_grad = fused_photometric_plain(x, y, 0.2)
+    d_loss = abs(float(loss) - float(want_loss))
+    d_grad = _close_grads(grad, want_grad)[0]
+    log(f"ssim vs plain on uniform random images {w}x{h} (the reference's "
+        f"kernel test): loss |d| {d_loss:.3e} (tolerance {SSIM_LOSS_TOL:g}),"
+        f" grad max |d| / max |g| {d_grad:.3e} (tolerance "
+        f"{SSIM_REF_GRAD_TOL_REL:g})")
+    assert d_loss <= SSIM_LOSS_TOL, (h, w, d_loss)
+    assert d_grad <= SSIM_REF_GRAD_TOL_REL, (h, w, d_grad)
 
 
 def check_ssim(pred, target, launches):
     """K3 against fused_photometric_plain on one training view's render
     and its ground truth (1600x900), and against the float64 plain
     version there, on the same pair resampled to 1920x1080, and on dark
-    low-variance images of both sizes (the SSIM variance terms cancel)."""
+    low-variance images of both sizes (the SSIM variance terms cancel);
+    and on uniform random images as the reference's kernel test does."""
     from h3dgs_tpu_torch.ops.ssim import (fused_photometric_forward,
                                           fused_photometric_plain)
 
@@ -1052,9 +1134,9 @@ def check_ssim(pred, target, launches):
     scale = float(want_grad.abs().max())
     d_grad = float((grad - want_grad).abs().max())
     log(f"ssim vs plain at {pred.shape[2]}x{pred.shape[1]}: loss "
-        f"{float(loss):.7f} vs {float(want_loss):.7f} (|d| {d_loss:.3e}, "
-        f"tolerance {SSIM_LOSS_TOL:g} + the plain version's own "
-        f"{plain_err:.3e} from float64); grad max |d| {d_grad:.3e} = "
+        f"{float(loss):.7f} vs {float(want_loss):.7f} (|d| {d_loss:.3e}; "
+        f"the kernel is within {SSIM_LOSS_TOL:g} of float64, the plain "
+        f"version {plain_err:.3e} from it, so at most their sum); grad max |d| {d_grad:.3e} = "
         f"{d_grad / max(scale, 1e-30):.3e} of max |g| (tolerance "
         f"{SSIM_GRAD_TOL_REL:g})")
     assert d_loss <= SSIM_LOSS_TOL + plain_err, (d_loss, plain_err)
@@ -1077,6 +1159,7 @@ def check_ssim(pred, target, launches):
                                           device=pred.device)
                 for _ in range(2)]
         _ssim_against_float64(*dark, "dark image")
+        _ssim_reference_contract(shape[1], shape[2])
 
     ms = time_ms(lambda: fused_photometric_forward(pred, target, 0.2), 50)
     big_ms = time_ms(lambda: fused_photometric_forward(*big, 0.2), 50)
@@ -1244,10 +1327,12 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
     assert counts["blend_fwd"] == POST_ITERS and \
         counts["blend_bwd"] == POST_ITERS and counts["ssim"] == 0, counts
     cuts = rec["cuts"]
-    assert all(r == c for c, r in cuts), "a post step rendered a truncated cut"
-    log(f"cut sizes over the run: min {min(c for c, _ in cuts)}, max "
-        f"{max(c for c, _ in cuts)} of {h0.n_nodes} nodes; every cut "
-        f"rendered whole")
+    assert all(c == r == m for c, r, m in cuts), \
+        "a post step rendered a truncated cut"
+    log(f"cut sizes over the run: min {min(c for c, _, _ in cuts)}, max "
+        f"{max(c for c, _, _ in cuts)} of {h0.n_nodes} nodes; every cut "
+        f"rendered whole (reported size = rows rasterized less the skybox "
+        f"= the cut mask's count, recomputed)")
     steady = rec["step_ms"][4:]
     log(f"post step time (CUDA events between step ends, iterations 6-"
         f"{POST_ITERS}): median {np.median(steady):.3f} ms, min "
@@ -1325,7 +1410,7 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
         "-m", os.path.join(tmp, "post_fused"), "--iterations",
         str(POST_FUSED_ITERS)], fused=True)
     assert all(math.isfinite(x) for x in rec_f["photo"])
-    assert all(r == c for c, r in rec_f["cuts"])
+    assert all(c == r == m for c, r, m in rec_f["cuts"])
     log(f"train_post fused SSIM ({POST_FUSED_ITERS} iterations): photo "
         f"loss first {rec_f['photo'][0]:.5f}, last {rec_f['photo'][-1]:.5f}"
         f", median step {np.median(rec_f['step_ms'][4:]):.3f} ms; kernel "

@@ -216,11 +216,6 @@ def fused_photometric_walk(pred: torch.Tensor, target: torch.Tensor,
     return loss, grad
 
 
-# (device index, stream) -> the kernel's ticket counter: zero between
-# launches (the last block to finish resets it), so it is allocated once.
-_tickets: dict = {}
-
-
 @functools.lru_cache(maxsize=None)
 def _grid_limits(device_index: int):
     """(output columns per strip, resident blocks on the device) of the
@@ -250,14 +245,11 @@ def _launch_ssim(pred: torch.Tensor, target: torch.Tensor, lam: float):
                           device=dev)
     grad = torch.empty_like(pred)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
+    # The blocks' ticket counter: the launch zeroes it on the stream.
+    ticket = torch.empty((1,), dtype=torch.int32, device=dev)
     window = (ctypes.c_float * WIN)(*_window())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        key = (index, stream)
-        ticket = _tickets.get(key)
-        if ticket is None:
-            ticket = _tickets[key] = torch.zeros((1,), dtype=torch.int32,
-                                                 device=dev)
         status = fn(pred.data_ptr(), target.data_ptr(), h, w, rows, lam,
                     ctypes.addressof(window), partial.data_ptr(),
                     ticket.data_ptr(), grad.data_ptr(), loss.data_ptr(),

@@ -229,7 +229,10 @@ def train_post(cfg: FullConfig, scene: Scene,
     iterations a log line with the last step's cut size; on
     ``save_iterations`` ``scene.save(..., hierarchy=)`` writes
     ``<hier>_opt``; checkpoints hold a zero exposure and a fresh exposure
-    optimizer (post-training has none).
+    optimizer (post-training has none). A run resumed from a checkpoint
+    seeds its view order and its limits with the checkpoint's iteration,
+    so it does not repeat the (view, limit) pairs the first run began
+    with.
 
     The reference sizes the cut to a power-of-two bucket (``max_cut``,
     its ``initial_max_cut`` argument) that it regrows after a step has
@@ -270,10 +273,10 @@ def train_post(cfg: FullConfig, scene: Scene,
     bg = (torch.ones(3, device=device) if cfg.model.white_background
           else torch.zeros(3, device=device))
     spatial_lr = float(scene.cameras_extent)
-    stream = scene.train_stream(num_workers=8)
+    stream = scene.train_stream(seed=first_iter, num_workers=8)
     prefetch = DevicePrefetcher(stream, device)
     gen = torch.Generator(device=device)
-    gen.manual_seed(0)
+    gen.manual_seed(first_iter)
     log = TrainLog(t_start=time.time())
     pre_exp = scene.pretrained_exposures or {}
     identity = np.eye(3, 4, dtype=np.float32)

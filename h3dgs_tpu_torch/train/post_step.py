@@ -46,7 +46,6 @@ class PostStepOutput(NamedTuple):
     photo_loss: torch.Tensor
     cut_size: torch.Tensor      # true cut size
     n_visible: torch.Tensor
-    n_rendered: int             # cut rows splatted (< cut_size: truncated)
 
 
 def render_cut(state: GaussianState, nodes: torch.Tensor,
@@ -110,18 +109,16 @@ def splat_cut_gaussians(xyz, scales, quats, opac, shs, camera: Camera,
 
 def make_post_train_step(opt_cfg: OptimizationConfig,
                          raster_cfg: RasterizeConfig,
-                         max_cut: Optional[int] = None,
                          skybox_locked: bool = True,
                          use_exposure: bool = True):
     """Build the post-optimization step.
 
     The exposure row is the *pretrained* per-image transform (loaded from
-    exposure.json): applied, never optimized. ``max_cut=None`` (the
-    training loop's choice) sizes every cut exactly, so none is truncated;
-    a number pads or truncates to that capacity as the reference's static
-    shapes do (parity tests pass the reference's). The step is a plain
-    eager function; the update runs under ``torch.no_grad()`` and returns
-    new tensors.
+    exposure.json): applied, never optimized. Every cut is sized exactly
+    from the selection (the reference's ``max_cut`` capacity, which its
+    static shapes need and which can truncate, has no counterpart). The
+    step is a plain eager function; the update runs under
+    ``torch.no_grad()`` and returns new tensors.
     """
 
     def step(state: GaussianState, opt: adam_lib.AdamState,
@@ -137,7 +134,7 @@ def make_post_train_step(opt_cfg: OptimizationConfig,
 
         with torch.enable_grad():
             out = render_cut(state, nodes, boxes, batch.camera, limit,
-                             sh_degree, bg, raster_cfg, max_cut,
+                             sh_degree, bg, raster_cfg, None,
                              exposure=exp_row, params=params)
             image = out["render"] * batch.alpha_mask
             photo = loss_lib.photometric_loss(image, batch.gt_image,
@@ -166,11 +163,9 @@ def make_post_train_step(opt_cfg: OptimizationConfig,
                 state.trainable_dict(), g_params, opt, lrs, all_rows)
             new_state = state.replace_trainable(new_params)
 
-        cut = out["cut"]
         return PostStepOutput(
             state=new_state, opt=new_opt, photo_loss=photo.detach(),
-            cut_size=cut.count, n_visible=out["visibility_filter"].sum(),
-            n_rendered=int(cut.indices.shape[0]) if max_cut is None
-            else min(int(cut.indices.shape[0]), int(cut.count)))
+            cut_size=out["cut"].count,
+            n_visible=out["visibility_filter"].sum())
 
     return step

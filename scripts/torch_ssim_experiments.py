@@ -183,7 +183,7 @@ class New:
         self.per_sm, self.threads = blocks.value, threads.value
         n_sm = torch.cuda.get_device_properties(0).multi_processor_count
         self.slots = slots or self.per_sm * n_sm
-        self.ticket = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        self.ticket = torch.empty((1,), dtype=torch.int32, device="cuda")
         self.window = (F * ssim.WIN)(*ssim._window())
 
     def plan(self, h, w):
@@ -280,6 +280,12 @@ def make_variants(src: str):
     return {
         "committed": (src, (), {}, True),
         "fmad_false": (src, ("-fmad=false",), {}, True),
+        # Every blur tap a product and a sum, each rounded: the plain
+        # version's roundings.
+        "separate_roundings": (sub(src, (
+            "#include <cuda_runtime.h>\n",
+            "#include <cuda_runtime.h>\n#define __fmaf_rn(a, b, c) "
+            "__fadd_rn(__fmul_rn((a), (b)), (c))\n")), (), {}, True),
         "threads_256": (sub(src, ("kThreads = 128;", "kThreads = 256;"),
                             ("kMinBlocksPerSM = 3;", "kMinBlocksPerSM = 1;")),
                         (), {}, True),
@@ -407,14 +413,13 @@ def main() -> int:
             assert e["finite"], (name, h, w, dark)
             assert e["d_loss_vs_plain"] <= 2e-6, (name, h, w, dark, e)
             assert e["d_grad_vs_plain"] <= 1e-4, (name, h, w, dark, e)
-        # Two launches in a row agree bit for bit (the ticket was reset,
-        # the loss sum is ordered).
+        # Two launches in a row agree bit for bit (the loss sum is
+        # ordered).
         x, y = pairs[(SIZES[0][0], SIZES[0][1], False)]
         l1, g1 = fn(x, y)
         l2, g2 = fn(x, y)
         torch.cuda.synchronize()
         assert float(l1) == float(l2) and torch.equal(g1, g2), name
-        assert int(fn.ticket) == 0, name
 
     if args.old_dir:
         with open(os.path.join(args.old_dir, "ssim.cu")) as f:

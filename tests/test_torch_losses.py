@@ -129,6 +129,23 @@ def test_fused_walk_matches_plain(h, w, threads, rows):
     assert float(want_grad.abs().max()) > 1e-5
 
 
+@pytest.mark.parametrize("h,w", [(48, 64), (100, 130)])
+def test_fused_walk_float32_within_reference_contract(h, w):
+    """In float32 the walk's pass order (along the row first, the plain
+    version's down the column first) rounds differently; on the uniform
+    random images of the reference's kernel test
+    (tests/test_pallas_ssim.py) the two stay within that test's bounds:
+    loss 5e-7, gradient 5e-6 of its largest value."""
+    rng = np.random.default_rng(h * 1000 + w)
+    xt = t_(rng.uniform(0, 1, (3, h, w)).astype(np.float32))
+    yt = t_(rng.uniform(0, 1, (3, h, w)).astype(np.float32))
+    want_loss, want_grad = tssim.fused_photometric_plain(xt, yt, 0.2)
+    loss, grad = tssim.fused_photometric_walk(xt, yt, 0.2)
+    assert abs(float(loss) - float(want_loss)) <= 5e-7
+    assert float((grad - want_grad).abs().max()) <= \
+        5e-6 * float(want_grad.abs().max())
+
+
 @pytest.mark.parametrize("h,w", [(900, 1600), (1080, 1920), (11, 11),
                                  (64, 64), (37, 2000)])
 def test_plan_strips_covers_the_image(h, w):

@@ -8,7 +8,9 @@ test.
 Parity scenes keep off the known ties (hazards H4-H6, H9, H10): a grey
 background and unsaturated colours, so no pixel sits exactly on a clamp
 bound (``jnp.clip`` splits the gradient there, ``torch.clamp`` does not),
-and the JAX step's ``max_cut`` is the node count, so it never truncates.
+and the JAX step's ``max_cut`` is the node count, so it never truncates;
+the port's step sizes its cut exactly (the JAX step's padded rows have
+opacity 0 and carry no gradient, so the same tolerances hold).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from h3dgs_tpu.train import step as jstep
 from h3dgs_tpu_torch.cli import hierarchy_creator as tcreator
 from h3dgs_tpu_torch.cli import train_post as tpost_cli
 from h3dgs_tpu_torch.config import OptimizationConfig as TOptCfg
+from h3dgs_tpu_torch.hierarchy import cut as tcut
 from h3dgs_tpu_torch.hierarchy import io as thio
 from h3dgs_tpu_torch.model import init as tinit
 from h3dgs_tpu_torch.model import state as tstate
@@ -174,7 +177,7 @@ def trajectory(tmp_path_factory):
                                         skybox_locked=True,
                                         use_exposure=True)
     t_step = tpost.make_post_train_step(TOptCfg(**opt_kw), TRasterCfg(),
-                                        h.n_nodes, skybox_locked=True,
+                                        skybox_locked=True,
                                         use_exposure=True)
     nodes_j, boxes_j = jnp.asarray(h.nodes), jnp.asarray(h.boxes)
     nodes_t, boxes_t = t_(h.nodes), t_(h.boxes)
@@ -210,7 +213,6 @@ def test_post_step_matches_jax(trajectory, n_steps):
         assert int(rec["t"].cut_size) == rec["j"]["cut"]
         assert int(rec["t"].n_visible) == rec["j"]["vis"]
         assert rec["j"]["cut"] <= trajectory["h"].n_nodes
-        assert rec["t"].n_rendered == rec["j"]["cut"]
         assert abs(float(rec["t"].photo_loss) - rec["j"]["photo"]) <= tol
     rec = trajectory["records"][n_steps - 1]
     cuts = {r["j"]["cut"] for r in trajectory["records"]}
@@ -359,7 +361,9 @@ def test_update_hierarchy_from_state_equal(trajectory):
 
 def test_train_post_cli_cpu(chunk, tmp_path, monkeypatch):
     """``train_post.main`` for 6 iterations on the CPU over the hierarchy
-    the port's creator wrote: no step renders a truncated cut, anchors
+    the port's creator wrote: no step renders a truncated cut (the rows
+    handed to the rasterizer are the cut mask's count, recomputed here,
+    plus the skybox), anchors
     and skybox rows stay put, ``<hier>_opt`` reads back and validates in
     both packages, a checkpoint resumes; without CUDA and without
     ``--device`` it raises, and so does view data parallelism."""
@@ -370,20 +374,30 @@ def test_train_post_cli_cpu(chunk, tmp_path, monkeypatch):
     jmeta.write_exposure_json(
         os.path.join(out, "exposure.json"),
         {"img_000": np.eye(3, 4, dtype=np.float32) * 0.97})
-    seen = []
+    seen, splatted = [], []
     orig = tloop.make_post_train_step
+    orig_splat = tpost.splat_cut_gaussians
+
+    def splat_spy(xyz, *a, **kw):
+        splatted.append(int(xyz.shape[0]))
+        return orig_splat(xyz, *a, **kw)
 
     def spy(*a, **kw):
         step = orig(*a, **kw)
 
-        def wrapped(state, *sa):
-            o = step(state, *sa)
-            seen.append((int(o.cut_size), o.n_rendered, state, o.state,
+        def wrapped(state, opt, batch, nodes, boxes, amask, exp_row, limit,
+                    *sa):
+            o = step(state, opt, batch, nodes, boxes, amask, exp_row, limit,
+                     *sa)
+            center = tstep.decode_view(batch).camera.cam_center
+            in_cut = tcut.cut_mask(nodes, boxes, limit, center)[0]
+            seen.append((int(o.cut_size), int(in_cut.sum()), state, o.state,
                          float(o.photo_loss)))
             return o
         return wrapped
 
     monkeypatch.setattr(tloop, "make_post_train_step", spy)
+    monkeypatch.setattr(tpost, "splat_cut_gaussians", splat_spy)
     argv = ["-s", chunk["root"], "-m", out, "--hierarchy", hier,
             "--scaffold_file", chunk["scaffold"], "--skybox_locked",
             "--iterations", "6", "--checkpoint_iterations", "4"]
@@ -395,8 +409,10 @@ def test_train_post_cli_cpu(chunk, tmp_path, monkeypatch):
     tpost_cli.main(argv + ["--device", "cpu"])
     assert len(seen) == 6
     h0 = thio.read_hier(hier)
-    for cut, rendered, _, _, photo in seen:
-        assert rendered == cut <= h0.n_nodes and np.isfinite(photo)
+    assert len(splatted) == 6
+    for (cut, in_mask, _, _, photo), rows in zip(seen, splatted):
+        assert rows - N_SKY == in_mask == cut <= h0.n_nodes
+        assert np.isfinite(photo)
     first, last = seen[0][2], seen[-1][3]
     assert first.n_skybox == N_SKY and first.capacity == h0.n_nodes + N_SKY
     lock = np.zeros(first.capacity, bool)
