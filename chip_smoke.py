@@ -19,7 +19,13 @@ saved (about 1.1M Gaussians, skybox rows excluded, the chunk's bounds and
 scaffold), then ``train_post.main`` on that hierarchy and the same views
 for 60 iterations (SH degree 3 stored and interpolated per node), 20 more
 with the fused loss, and a run resumed from a checkpoint; the
-``<hier>_opt`` it writes is opened by ``HierarchyRenderer``.
+``<hier>_opt`` it writes is opened by ``HierarchyRenderer``. Evaluation:
+that ``<hier>_opt`` merged by ``hierarchy_merger.main`` from two chunks
+splitting the training chunk at X = 0, the ``merged.hier`` served, and
+evaluated by ``render_hierarchy.main`` on the 24 views at tau in {0, 3,
+6, 15} (PSNR, SSIM, LPIPS with synthetic weights). Orchestration:
+``python -m h3dgs_tpu_torch.cli.full_train`` on a two-chunk project at a
+reduced size, then again with ``--skip_if_exists``.
 
 Phases, each failing the run with its traceback:
   1. card name and power limit (nvidia-smi); fails without CUDA;
@@ -41,7 +47,13 @@ Phases, each failing the run with its traceback:
      paths, counted: 60 iterations, 20 with the fused loss, a resumed run;
      locked rows bit-equal, no cut truncated, ``<hier>_opt`` read back,
      validated and rendered; the post step's time, stages and busy share;
- 10. each kernel against its plain PyTorch version on one frame's or one
+ 10. the evaluation path, counted: merge (validated, leaves counted
+     independently), one served frame of ``merged.hier``, the tau sweep
+     (K1 once per frame, metrics finite, cuts coarsening with tau, per-
+     frame render and metric times), LPIPS on the card against float64
+     on the CPU;
+ 11. ``full_train`` in child processes on the card, and its resume;
+ 12. each kernel against its plain PyTorch version on one frame's or one
      view's inputs, with times and the kernel's bound; for the blend
      kernels also the wrapper's tile sort and the pack pre-pass on their
      own, and the times of the kernels they replaced; for the fused loss
@@ -114,6 +126,30 @@ POST_RESUMED = 4
 POST_FUSED_ITERS = 20
 TRAIN_FLAGS = ["--densify_from_iter", "20", "--densification_interval",
                "30", "--opacity_reset_interval", "70", "--disable_viewer"]
+# Evaluation: the post phase's <hier>_opt merged from two chunks that split
+# the training chunk's box at X = 0, evaluated on the chunk's views at these
+# taus. LPIPS runs with synthetic weights (the repository holds no
+# pretrained ones); its card value of one (frame, ground truth) pair at
+# 1600x900 is held against float64 on the CPU within LPIPS_REL. The limit
+# sits between float32's distance from float64 and TF32's: with TF32 the
+# error of the convolutions largely averages out of the mean over the
+# image, so a limit of 1e-4 would let TF32 through (PERF.md, section 6).
+# The check also computes the TF32 distance and fails if it is not beyond
+# the limit.
+EVAL_TAUS = (0.0, 3.0, 6.0, 15.0)
+LPIPS_REL = 1e-6
+# render.render against rasterize of the same rows: the same kernel on the
+# same inputs, so only the exposure's float32 rounding (a few ulps of 1)
+# separates them; a transposed exposure matrix would read ~1e-4.
+RENDER_EXPOSURE_TOL = 2e-6
+# full_train orchestration at a reduced size: two chunks of the same
+# surface, ORCH_POINTS Gaussians in all (half in each chunk), ORCH_VIEWS
+# views at ORCH_W x ORCH_H, ORCH_ITERS iterations per training stage.
+ORCH_POINTS = 40_000
+ORCH_VIEWS = 8
+ORCH_W, ORCH_H = 800, 450
+ORCH_ITERS = 30
+ORCH_TIMEOUT_S = 600
 # K2: about 20 FP32 operations to recompute alpha per evaluated (entry,
 # pixel) pair up to the pixel's last contributing entry, and about 40 more
 # per contributing pair (T by division, d_alpha, the chain to means2d and
@@ -442,6 +478,60 @@ def train_cameras(look_at_camera):
             for a in np.linspace(0, 2 * np.pi, TRAIN_VIEWS, endpoint=False)]
 
 
+def write_views(root: str, cameras, gt, depths: bool):
+    """Render the Gaussians ``gt`` from each camera on the card; write the
+    views as PNGs under ``root/images`` (and, with ``depths``, 16-bit
+    inverse depths under ``root/depths``, depth_params scale 1). Returns
+    the COLMAP camera and image records and the depth params."""
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.io.image import write_png
+    from h3dgs_tpu_torch.ops.rasterize import rasterize
+
+    bg = torch.zeros(3, device=DEVICE)
+    cams, imgs, depth_params = {}, {}, {}
+    for i, cam in enumerate(cameras):
+        with torch.no_grad():
+            out = rasterize(*gt, cam, 3, bg)
+        img = (out["render"].clamp(0, 1) * 255 + 0.5).to(torch.uint8)
+        name = f"view_{i:03d}.png"
+        write_png(os.path.join(root, "images", name),
+                  img.permute(1, 2, 0).cpu().numpy(), level=1)
+        if depths:
+            raw = (out["invdepth"][0] * 65536.0).clamp(0, 65535).to(
+                torch.int32)
+            write_png(os.path.join(root, "depths", name),
+                      raw.cpu().numpy().astype(np.uint16), level=1)
+            depth_params[name[:-4]] = {"scale": 1.0, "offset": 0.0}
+        fx = cam.width / (2.0 * float(cam.tanfovx))
+        fy = cam.height / (2.0 * float(cam.tanfovy))
+        cams[i + 1] = colmap_io.ColmapCamera(
+            i + 1, "PINHOLE", cam.width, cam.height,
+            np.asarray([fx, fy, cam.width / 2.0, cam.height / 2.0]))
+        view = cam.view.numpy()
+        imgs[i + 1] = colmap_io.ColmapImage(
+            i + 1, colmap_io.rotmat2qvec(view[:3, :3]),
+            view[:3, 3].astype(np.float64), i + 1, name, np.zeros((0, 2)),
+            np.zeros(0, np.int64))
+    return cams, imgs, depth_params
+
+
+def colmap_points(xyz, shs, rng):
+    """points3D records: the Gaussians' positions jittered by 0.01 and
+    their base colours, no tracks."""
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.utils.sh import SH_C0
+
+    n = xyz.shape[0]
+    colors = np.clip(shs[:, 0] * SH_C0 + 0.5, 0, 1)
+    return colmap_io.ColmapPoints3D(
+        ids=np.arange(1, n + 1, dtype=np.int64),
+        xyz=(xyz + rng.normal(0, 0.01, xyz.shape)).astype(np.float64),
+        rgb=(colors * 255 + 0.5).astype(np.uint8), error=np.zeros(n),
+        track_offsets=np.zeros(n + 1, np.int64),
+        track_image_ids=np.zeros(0, np.int32),
+        track_point2d_idxs=np.zeros(0, np.int32))
+
+
 def write_chunk(root: str, rng):
     """A synthetic chunk in the reference's layout, written with the port's
     own writers: COLMAP model (points3D.bin with TRAIN_POINTS jittered
@@ -452,9 +542,7 @@ def write_chunk(root: str, rng):
     extent.txt)."""
     from h3dgs_tpu_torch.io import colmap as colmap_io
     from h3dgs_tpu_torch.io import meta as meta_io
-    from h3dgs_tpu_torch.io.image import write_png
     from h3dgs_tpu_torch.io.ply import write_gaussian_ply
-    from h3dgs_tpu_torch.ops.rasterize import rasterize
     from h3dgs_tpu_torch.scene.camera import look_at_camera
     from h3dgs_tpu_torch.utils.sh import SH_C0
 
@@ -497,39 +585,10 @@ def write_chunk(root: str, rng):
         (xyz, sky_xyz), (np.exp(scaling), np.exp(sc_scale[:sky])),
         (rotation, sc_rot[:sky]),
         (alpha, np.full(sky, 1.0 / (1.0 + np.exp(-1.0)))), (shs, sky_sh))]
-    bg = torch.zeros(3, device=DEVICE)
-    cams, imgs, depth_params = {}, {}, {}
-    for i, cam in enumerate(train_cameras(look_at_camera)):
-        with torch.no_grad():
-            out = rasterize(*gt, cam, 3, bg)
-        img = (out["render"].clamp(0, 1) * 255 + 0.5).to(torch.uint8)
-        name = f"view_{i:03d}.png"
-        write_png(os.path.join(root, "images", name),
-                  img.permute(1, 2, 0).cpu().numpy(), level=1)
-        raw = (out["invdepth"][0] * 65536.0).clamp(0, 65535).to(torch.int32)
-        write_png(os.path.join(root, "depths", name),
-                  raw.cpu().numpy().astype(np.uint16), level=1)
-        depth_params[name[:-4]] = {"scale": 1.0, "offset": 0.0}
-        fx = cam.width / (2.0 * float(cam.tanfovx))
-        fy = cam.height / (2.0 * float(cam.tanfovy))
-        cams[i + 1] = colmap_io.ColmapCamera(
-            i + 1, "PINHOLE", cam.width, cam.height,
-            np.asarray([fx, fy, cam.width / 2.0, cam.height / 2.0]))
-        view = cam.view.numpy()
-        imgs[i + 1] = colmap_io.ColmapImage(
-            i + 1, colmap_io.rotmat2qvec(view[:3, :3]),
-            view[:3, 3].astype(np.float64), i + 1, name, np.zeros((0, 2)),
-            np.zeros(0, np.int64))
+    cams, imgs, depth_params = write_views(
+        root, train_cameras(look_at_camera), gt, depths=True)
     del gt
-    n = TRAIN_POINTS
-    colors = np.clip(shs[:, 0] * SH_C0 + 0.5, 0, 1)
-    pts = colmap_io.ColmapPoints3D(
-        ids=np.arange(1, n + 1, dtype=np.int64),
-        xyz=(xyz + rng.normal(0, 0.01, xyz.shape)).astype(np.float64),
-        rgb=(colors * 255 + 0.5).astype(np.uint8), error=np.zeros(n),
-        track_offsets=np.zeros(n + 1, np.int64),
-        track_image_ids=np.zeros(0, np.int32),
-        track_point2d_idxs=np.zeros(0, np.int32))
+    pts = colmap_points(xyz, shs, rng)
     colmap_io.write_model_binary(sparse, cams, imgs, pts)
     with open(os.path.join(sparse, "depth_params.json"), "w") as f:
         json.dump(depth_params, f)
@@ -1274,7 +1333,10 @@ def training_phase(tmp: str, rng, look_at_camera):
     del rec_f
     torch.cuda.empty_cache()
     post_counts = post_phase(tmp, out, src, sc_dir, look_at_camera)
-    return {"train": counts, "fused": counts_f, **post_counts}, k2_inputs
+    torch.cuda.empty_cache()
+    eval_counts = eval_phase(tmp, out, src, sc_dir, look_at_camera)
+    return ({"train": counts, "fused": counts_f, **post_counts,
+             **eval_counts}, k2_inputs)
 
 
 def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
@@ -1422,6 +1484,439 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
     return {"post": counts, "post_resumed": counts_r, "post_fused": counts_f}
 
 
+def synthetic_lpips_weights(path: str, seed: int = 0) -> dict:
+    """LPIPS(vgg) weights in the .npz layout, made from a seed: He-normal
+    convolutions (so the features neither vanish nor blow up) and
+    non-negative heads. Not the pretrained network: what they give is
+    LPIPS(synthetic)."""
+    from h3dgs_tpu_torch.eval.metrics import _VGG_CFG
+
+    rng = np.random.default_rng(seed)
+    arrays, cin, li = {}, 3, 0
+    for block in _VGG_CFG:
+        for cout in block:
+            arrays[f"conv{li}.weight"] = rng.normal(
+                0, np.sqrt(2.0 / (9 * cin)), (cout, cin, 3, 3)).astype(
+                np.float32)
+            arrays[f"conv{li}.bias"] = rng.normal(0, 0.01, cout).astype(
+                np.float32)
+            cin, li = cout, li + 1
+    for i, block in enumerate(_VGG_CFG):
+        arrays[f"lin{i}.weight"] = np.abs(rng.normal(
+            0, 0.1, (1, block[-1], 1, 1))).astype(np.float32)
+    np.savez(path, **arrays)
+    return arrays
+
+
+def run_eval_cli(argv):
+    """``render_hierarchy.main(argv)`` with CUDA events around every
+    ``render_cut`` (one per frame) and every metric call (PSNR, SSIM,
+    LPIPS), and the first (frame, ground truth) pair LPIPS saw, with its
+    value. Returns (results, per-frame ms of the render, of PSNR + SSIM
+    and of LPIPS, (frame, ground truth, lpips))."""
+    from h3dgs_tpu_torch.cli import render_hierarchy
+    from h3dgs_tpu_torch.eval import metrics
+    from h3dgs_tpu_torch.train import post_step
+
+    events = {"render": [], "psnr": [], "ssim": [], "lpips": []}
+    pair = []
+    saved = {"render_cut": (post_step, post_step.render_cut),
+             "psnr": (metrics, metrics.psnr),
+             "ssim": (metrics, metrics.ssim),
+             "lpips": (metrics, metrics.lpips)}
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            events[key].append(ev)
+            if fn is saved["lpips"][1] and not pair:
+                pair.append((a[0].clone(), a[1].clone(), out))
+            return out
+        return wrapped
+
+    for name, (mod, fn) in saved.items():
+        setattr(mod, name, timed("render" if name == "render_cut" else name,
+                                 fn))
+    try:
+        results = render_hierarchy.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, fn) in saved.items():
+            setattr(mod, name, fn)
+    ms = {k: np.asarray([a.elapsed_time(b) for a, b in evs])
+          for k, evs in events.items()}
+    assert len({len(v) for v in ms.values()}) == 1, \
+        {k: len(v) for k, v in ms.items()}
+    return results, ms["render"], ms["psnr"] + ms["ssim"], ms["lpips"], \
+        pair[0]
+
+
+def lpips_tf32_check(weights_path: str, weights: dict, frame, gt):
+    """The card's LPIPS of one (frame, ground truth) pair at the eval's
+    size against the same network in float64 on the CPU, within LPIPS_REL;
+    the same distance on the card with cuDNN's TF32 allowed, which must
+    land beyond LPIPS_REL (else the limit could not tell TF32 from
+    float32); the frame against itself."""
+    from h3dgs_tpu_torch.eval import metrics
+
+    cudnn = torch.backends.cudnn
+    tf32_before = cudnn.allow_tf32
+    card = metrics.lpips(frame, gt, weights_path=weights_path, device=DEVICE)
+    assert cudnn.allow_tf32 == tf32_before, "lpips left TF32 changed"
+    same = metrics.lpips(frame, frame, weights_path=weights_path,
+                         device=DEVICE)
+    net = metrics.LPIPSNet(weights).to(DEVICE)
+    x = torch.stack([frame, gt]).float() * 2.0 - 1.0
+    with torch.no_grad(), cudnn.flags(
+            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+            deterministic=cudnn.deterministic, allow_tf32=True):
+        tf32 = float(net.distance(net.features(x)))
+    del net, x
+    t0 = time.perf_counter()
+    net64 = metrics.LPIPSNet(weights).double()
+    with torch.no_grad():
+        want = float(net64(frame.cpu().double(), gt.cpu().double()))
+    rel, rel_tf32 = (abs(v - want) / want for v in (card, tf32))
+    log(f"lpips on the card vs float64 on the CPU ({frame.shape[2]}x"
+        f"{frame.shape[1]}, view 0 at tau {EVAL_TAUS[0]}): {card:.10f} vs "
+        f"{want:.10f}, relative |d| {rel:.3e}; with TF32 allowed "
+        f"{tf32:.10f}, relative |d| {rel_tf32:.3e} (limit {LPIPS_REL:g} "
+        f"between them); frame against itself {same:.3e}; float64 "
+        f"reference {time.perf_counter() - t0:.1f} s on the host")
+    assert rel <= LPIPS_REL, (card, want)
+    assert rel_tf32 > LPIPS_REL, ("the limit does not tell TF32 from "
+                                  "float32", tf32, want)
+    assert abs(same) < 1e-6, same
+
+
+def render_check(merged_path: str, sc_dir: str, exposure_path: str,
+                 look_at_camera):
+    """The flat entry point ``render.render`` on the card at full width:
+    ``merged.hier``'s state with the scaffold's skybox rows, its leaves and
+    skybox rows as an exact index subset, view 0 at 1600x900 with its
+    pretrained exposure; counted (one K1 launch). Held against
+    ``rasterize`` of the same rows gathered here, the exposure applied in
+    float64 and the image clipped: within RENDER_EXPOSURE_TOL; visibility
+    and radii equal on the subset and zero off it. Returns the launch
+    counts."""
+    from h3dgs_tpu_torch import render as render_lib
+    from h3dgs_tpu_torch.hierarchy.io import read_hier
+    from h3dgs_tpu_torch.hierarchy.tree import N_CHILDREN
+    from h3dgs_tpu_torch.io import meta as meta_io
+    from h3dgs_tpu_torch.model.init import state_from_hierarchy
+    from h3dgs_tpu_torch.ops.rasterize import rasterize
+
+    h = read_hier(merged_path)
+    state, _ = state_from_hierarchy(h, sc_dir, device=DEVICE)
+    cap, n_sky = state.capacity, state.n_skybox
+    rows = np.concatenate([np.flatnonzero(h.nodes[:, N_CHILDREN] == 0),
+                           np.arange(cap - n_sky, cap)])
+    idx = torch.as_tensor(rows, device=DEVICE)
+    exposures = meta_io.read_exposure_json(exposure_path)
+    name = min(exposures)
+    assert name.startswith("view_000"), name
+    exposure = torch.as_tensor(exposures[name], dtype=torch.float32,
+                               device=DEVICE)
+    cam = train_cameras(look_at_camera)[0]
+    bg = torch.zeros(3, device=DEVICE)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out, counts = counted(render_lib.render, cam, state, bg,
+                              use_trained_exp=True, exposure=exposure,
+                              indices=idx, device=DEVICE)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ref = rasterize(state.xyz[idx], state.get_scaling()[idx],
+                        state.get_rotation()[idx],
+                        state.get_opacity()[idx, 0],
+                        state.get_features(state.max_sh_degree)[idx], cam,
+                        state.max_sh_degree, bg)
+    # The reference's exposure multiplies each pixel's colour, a row
+    # vector, by the 3x3 part: out_j = sum_i rgb_i * e[i, j] + e[j, 3].
+    e = exposure.double()
+    want = (torch.einsum("ij,ihw->jhw", e[:, :3], ref["render"].double())
+            + e[:, 3, None, None]).clamp(0.0, 1.0)
+    d = float((out["render"].double() - want).abs().max())
+    vis, radii = out["visibility_filter"], out["radii"]
+    n_vis = int(vis.sum())
+    log(f"render.render on the card: {rows.size} of {cap} rows (merged "
+        f"leaves and skybox) as an exact subset, view 0 {TRAIN_W}x{TRAIN_H} "
+        f"with its exposure, {wall_ms:.1f} ms wall; max |d| from rasterize "
+        f"of the rows gathered here, exposure in float64, {d:.3e}; {n_vis} "
+        f"visible, visibility and radii equal on the subset and zero off "
+        f"it; kernel launches {counts}")
+    assert counts == {"blend_fwd": 1, "blend_bwd": 0, "ssim": 0}, counts
+    assert tuple(out["render"].shape) == (3, TRAIN_H, TRAIN_W)
+    assert d <= RENDER_EXPOSURE_TOL, d
+    assert float(out["render"].min()) >= 0 and float(out["render"].max()) <= 1
+    assert torch.equal(vis[idx], ref["visibility_filter"]), "visibility"
+    assert torch.equal(radii[idx], ref["radii"].to(radii.dtype)), "radii"
+    assert n_vis == int(vis[idx].sum()) > 0, n_vis
+    assert int((radii != 0).sum()) == int((radii[idx] != 0).sum())
+    return counts
+
+
+def merge_check(hier_opt: str, tmp: str) -> str:
+    """Two chunk directories whose boxes split the training chunk's at
+    X = 0, each holding ``hier_opt``; the port's merger CLI on them; the
+    merged tree against a leaf count made here with numpy. Returns the
+    merged file's path."""
+    from h3dgs_tpu_torch.cli import hierarchy_merger
+    from h3dgs_tpu_torch.hierarchy.io import read_hier
+    from h3dgs_tpu_torch.hierarchy.tree import N_CHILDREN
+    from h3dgs_tpu_torch.io import meta as meta_io
+
+    trained = os.path.join(tmp, "trained_chunks")
+    chunks = os.path.join(tmp, "chunks")
+    half = CHUNK_EXTENT / 2
+    bounds = {}
+    for name, cx in (("x_neg", -half / 2), ("x_pos", half / 2)):
+        os.makedirs(os.path.join(trained, name))
+        os.makedirs(os.path.join(chunks, name))
+        os.symlink(hier_opt, os.path.join(trained, name,
+                                          "hierarchy.hier_opt"))
+        center = [cx, 0.0, 0.0]
+        extent = [half, CHUNK_EXTENT, CHUNK_EXTENT]
+        meta_io.write_vec(os.path.join(chunks, name, "center.txt"), center)
+        meta_io.write_vec(os.path.join(chunks, name, "extent.txt"), extent)
+        c, e = np.float32(center), np.float32(extent)
+        bounds[name] = (c - e / 2, c + e / 2)
+    merged_dir = os.path.join(tmp, "merged")
+    merged_path = os.path.join(merged_dir, "merged.hier")
+    t0 = time.perf_counter()
+    hierarchy_merger.main([trained, "0", chunks, merged_path,
+                           *sorted(bounds)])
+    seconds = time.perf_counter() - t0
+
+    h = read_hier(hier_opt)
+    m = read_hier(merged_path)
+    m.validate()
+    assert m.root == 0 and m.nodes[0, N_CHILDREN] == 2, m.nodes[0]
+
+    def inside(xyz, lo, hi):
+        return ((xyz[:, 0] >= lo[0]) & (xyz[:, 0] <= hi[0])
+                & (xyz[:, 1] >= lo[1]) & (xyz[:, 1] <= hi[1]))
+
+    leaf = h.nodes[:, N_CHILDREN] == 0
+    want = sum(int((leaf & inside(h.xyz, lo, hi)).sum())
+               for lo, hi in bounds.values())
+    assert m.n_leaves == want, (m.n_leaves, want)
+    m_leaf = m.nodes[:, N_CHILDREN] == 0
+    union = np.zeros(m.n_nodes, bool)
+    for lo, hi in bounds.values():
+        union |= inside(m.xyz, lo, hi)
+    assert union[m_leaf].all(), "a merged leaf lies outside both boxes"
+    log(f"hierarchy_merger: 2 chunks of {h.n_nodes} nodes ({h.n_leaves} "
+        f"leaves each) -> {m.n_nodes} nodes, {m.n_leaves} leaves (= the "
+        f"leaves inside the two half boxes, counted with numpy), "
+        f"{m.anchors.size} anchors, validated, in {seconds:.1f} s on the "
+        f"host (read, prune, merge, write)")
+    return merged_path
+
+
+def eval_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
+               look_at_camera):
+    """README steps 4-5 on the post phase's output: merge two chunks of
+    its ``hierarchy.hier_opt`` (2,174,263 nodes each), serve one frame of
+    ``merged.hier`` and render it once through the flat entry point
+    ``render.render`` (``render_check``), then ``render_hierarchy.main``
+    over the chunk's views at 1600x900 for every tau of EVAL_TAUS,
+    counted, with the flat run's exposures and the scaffold's skybox
+    rows. Images are not written
+    (``--no_images``): the PNG writer is the training chunk's, and the CPU
+    tests compare its files with the JAX package's. Returns the launch
+    counts of the evaluation and of the render."""
+    import shutil
+
+    from h3dgs_tpu_torch.eval import metrics
+    from h3dgs_tpu_torch.viewer.service import HierarchyRenderer
+
+    merged_path = merge_check(
+        os.path.join(flat_out, "hierarchy.hier_opt"), tmp)
+    shutil.copyfile(os.path.join(flat_out, "exposure.json"),
+                    os.path.join(os.path.dirname(merged_path),
+                                 "exposure.json"))
+
+    # --- serve ---
+    renderer = HierarchyRenderer(merged_path, budget=BUDGET, device=DEVICE)
+    frame, st = renderer.render(orbit_cams(look_at_camera)[0], SERVE_TAU)
+    assert frame.shape == (HEIGHT, WIDTH, 3) and frame.max() > 0, \
+        "merged.hier frame is black"
+    log(f"merged.hier served: HierarchyRenderer frame {WIDTH}x{HEIGHT} at "
+        f"tau {SERVE_TAU}, cut {st['cut_size']}, mean level "
+        f"{frame.mean():.1f} / 255")
+    del renderer
+    torch.cuda.empty_cache()
+    render_counts = render_check(
+        merged_path, sc_dir,
+        os.path.join(os.path.dirname(merged_path), "exposure.json"),
+        look_at_camera)
+    torch.cuda.empty_cache()
+
+    # --- evaluate, counted ---
+    weights_path = os.path.join(tmp, "lpips_synthetic.npz")
+    weights = synthetic_lpips_weights(weights_path)
+    log("LPIPS below is LPIPS(synthetic): seeded He-normal VGG16 weights, "
+        "not the pretrained network (no weights are in the repository)")
+    old_env = os.environ.get(metrics.LPIPS_WEIGHTS_ENV)
+    os.environ[metrics.LPIPS_WEIGHTS_ENV] = weights_path
+    argv = ["-s", src, "--hierarchy", merged_path, "--scaffold_file",
+            sc_dir, "-m", os.path.join(tmp, "eval"), "--no_images",
+            "--device", DEVICE, "--taus", *(str(t) for t in EVAL_TAUS)]
+    t0 = time.perf_counter()
+    try:
+        (results, render_ms, ps_ms, lpips_ms, pair), counts = counted(
+            run_eval_cli, argv)
+    finally:
+        if old_env is None:
+            os.environ.pop(metrics.LPIPS_WEIGHTS_ENV)
+        else:
+            os.environ[metrics.LPIPS_WEIGHTS_ENV] = old_env
+    wall = time.perf_counter() - t0
+    n_frames = TRAIN_VIEWS * len(EVAL_TAUS)
+    log(f"render_hierarchy ({TRAIN_VIEWS} views {TRAIN_W}x{TRAIN_H} x "
+        f"{len(EVAL_TAUS)} taus = {n_frames} frames, {wall:.1f} s wall incl."
+        f" scene and hierarchy load and PNG decoding); kernel launches "
+        f"{counts}")
+    assert counts == {"blend_fwd": n_frames, "blend_bwd": 0, "ssim": 0}, \
+        counts
+    assert len(render_ms) == n_frames
+    cut_means = []
+    for i, tau in enumerate(EVAL_TAUS):
+        r = results[tau]
+        sl = slice(i * TRAIN_VIEWS, (i + 1) * TRAIN_VIEWS)
+        log(f"eval tau={tau:4.1f}: PSNR {r['psnr']:.4f} dB, SSIM "
+            f"{r['ssim']:.6f}, LPIPS(synthetic) {r['lpips']:.6f}, cut mean "
+            f"{r['cut_mean']:.0f} (min {r['cut_min']}, max {r['cut_max']}) "
+            f"over {r['n_views']} views; per frame (CUDA events) render "
+            f"{np.mean(render_ms[sl]):.3f} ms, PSNR + SSIM "
+            f"{np.mean(ps_ms[sl]):.3f} ms, LPIPS {np.mean(lpips_ms[sl]):.3f}"
+            f" ms")
+        assert r["n_views"] == TRAIN_VIEWS
+        assert all(math.isfinite(r[k]) for k in ("psnr", "ssim", "lpips")), r
+        cut_means.append(r["cut_mean"])
+    assert all(b <= a for a, b in zip(cut_means, cut_means[1:])), cut_means
+    lpips_tf32_check(weights_path, weights, pair[0], pair[1])
+    del pair
+    return {"eval": counts, "render": render_counts}
+
+
+def write_orchestration_project(proj: str, rng, look_at_camera):
+    """A two-chunk project in the full_train layout at a reduced size:
+    ``camera_calibration/aligned`` (COLMAP model and PNG views of the
+    surface, ORCH_POINTS points) and ``camera_calibration/chunks/{c0,c1}``
+    (the same model, and bounds splitting the surface at X = 0)."""
+    import shutil
+
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.io import meta as meta_io
+
+    xyz, shs, alpha, scaling, rotation = make_scene(rng, ORCH_POINTS)
+    aligned = os.path.join(proj, "camera_calibration", "aligned")
+    sparse = os.path.join(aligned, "sparse", "0")
+    os.makedirs(os.path.join(aligned, "images"))
+    gt = [torch.as_tensor(a, device=DEVICE)
+          for a in (xyz, np.exp(scaling), rotation, alpha, shs)]
+    cameras = [look_at_camera(eye=(5 * np.sin(a), -1.5, -5 * np.cos(a)),
+                              target=(0.0, 0.0, 0.0), fovx=1.2,
+                              width=ORCH_W, height=ORCH_H)
+               for a in np.linspace(0, 2 * np.pi, ORCH_VIEWS,
+                                    endpoint=False)]
+    cams, imgs, _ = write_views(aligned, cameras, gt, depths=False)
+    del gt
+    colmap_io.write_model_binary(sparse, cams, imgs,
+                                 colmap_points(xyz, shs, rng))
+    for name, cx in (("c0", -1.5), ("c1", 1.5)):
+        chunk = os.path.join(proj, "camera_calibration", "chunks", name)
+        shutil.copytree(os.path.join(aligned, "sparse"),
+                        os.path.join(chunk, "sparse"))
+        meta_io.write_vec(os.path.join(chunk, "center.txt"), [cx, 0.0, 0.0])
+        meta_io.write_vec(os.path.join(chunk, "extent.txt"), [3.0, 6.0, 6.0])
+    return os.path.join(aligned, "images")
+
+
+def run_process_tree(cmd, timeout: float) -> str:
+    """Run ``cmd`` as the leader of a new process group, from the
+    repository's root; on a timeout kill the whole group (its child
+    processes too) and raise. Returns its output (standard error
+    merged); raises with the output's end when it fails."""
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[:4]} exited {proc.returncode}:\n"
+                           + out[-4000:])
+    return out
+
+
+def orchestrate_phase(tmp: str, rng, look_at_camera) -> None:
+    """``python -m h3dgs_tpu_torch.cli.full_train`` as a child process on
+    the card over a two-chunk project written here at a reduced size
+    (ORCH_POINTS Gaussians on the serving surface, 20,000 in each chunk's
+    half, ORCH_VIEWS views at ORCH_W x ORCH_H, ORCH_ITERS iterations of
+    coarse, single and post training, no skybox), then again with
+    ``--skip_if_exists``. Checks the orchestration: every child a module of
+    the port, both chunks trained and merged, nothing re-run by the second
+    call but the merger."""
+    from h3dgs_tpu_torch.hierarchy.io import read_hier
+    from h3dgs_tpu_torch.hierarchy.tree import N_CHILDREN
+
+    proj = os.path.join(tmp, "project")
+    t0 = time.perf_counter()
+    images = write_orchestration_project(proj, rng, look_at_camera)
+    log(f"full_train project written in {time.perf_counter() - t0:.1f} s: "
+        f"2 chunks, {ORCH_POINTS} points, {ORCH_VIEWS} views "
+        f"{ORCH_W}x{ORCH_H}")
+    cmd = [sys.executable, "-m", "h3dgs_tpu_torch.cli.full_train",
+           "--project_dir", proj, "--images_dir", images,
+           "--iterations", str(ORCH_ITERS), "--extra_training_args",
+           f"--iterations {ORCH_ITERS} --skybox_num 0 "
+           f"--capacity_factor 2.0"]
+    out_dir = os.path.join(proj, "output")
+    opt = {c: os.path.join(out_dir, "trained_chunks", c, "hierarchy.hier_opt")
+           for c in ("c0", "c1")}
+    merged_path = os.path.join(out_dir, "merged.hier")
+
+    t0 = time.perf_counter()
+    said = run_process_tree(cmd, ORCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    children = [ln[2:] for ln in said.splitlines() if ln.startswith("+ ")]
+    assert len(children) == 8, children      # coarse, 2 x 3 stages, merger
+    assert all(" -m h3dgs_tpu_torch.cli." in c for c in children), children
+    merged = read_hier(merged_path)
+    merged.validate()
+    assert merged.nodes[0, N_CHILDREN] == 2, merged.nodes[0]
+    before = {c: os.path.getmtime(p) for c, p in opt.items()}
+    modules = sorted({c.split(" -m ")[1].split()[0] for c in children})
+    log(f"full_train on the card: {len(children)} child processes, every "
+        f"one a module of the port ({', '.join(modules)}); merged.hier "
+        f"{merged.n_nodes} nodes, {merged.n_leaves} leaves, validated; "
+        f"{wall:.1f} s wall")
+
+    t0 = time.perf_counter()
+    said = run_process_tree(cmd + ["--skip_if_exists"], ORCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    children = [ln[2:] for ln in said.splitlines() if ln.startswith("+ ")]
+    assert len(children) == 1 and \
+        " -m h3dgs_tpu_torch.cli.hierarchy_merger " in children[0], children
+    assert {c: os.path.getmtime(p) for c, p in opt.items()} == before, \
+        "--skip_if_exists re-ran a chunk"
+    read_hier(merged_path).validate()
+    log(f"full_train --skip_if_exists: no chunk re-run (hierarchy.hier_opt "
+        f"mtimes unchanged), merger only; {wall:.1f} s wall")
+
+
 def build_kernels() -> None:
     """Every kernel from its source, one nvcc each, started together; the
     compiler's register / spill report."""
@@ -1513,15 +2008,20 @@ def main() -> int:
     # --- the training paths, counted ---
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, k2_inputs = training_phase(tmp, rng, look_at_camera)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        orchestrate_phase(tmp, rng, look_at_camera)
     steps = (TRAIN_ITERS + FUSED_ITERS + POST_ITERS + POST_RESUMED
              + POST_FUSED_ITERS)
     fused_steps = FUSED_ITERS + POST_FUSED_ITERS
+    eval_frames = TRAIN_VIEWS * len(EVAL_TAUS)
     total = {k: launches[k] + sum(c[k] for c in train_counts.values())
              for k in launches}
     log(f"kernel launches over the {1 + len(train_counts)} paths: {total} "
         f"({frames} frames, {steps} training steps, {fused_steps} of them "
-        f"with the fused loss)")
-    assert total["blend_fwd"] >= frames + steps, total
+        f"with the fused loss, {eval_frames} evaluation frames, 1 render "
+        f"call)")
+    assert total["blend_fwd"] >= frames + steps + eval_frames + 1, total
     assert total["blend_bwd"] >= steps, total
     assert total["ssim"] >= fused_steps, total
     for name, n in total.items():

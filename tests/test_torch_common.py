@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -72,35 +73,107 @@ def _port_sources():
     return sorted(files)
 
 
+BANNED_ROOTS = ("jax", "jaxlib", "h3dgs_tpu")
+# A module of the JAX package named in a string ("-m h3dgs_tpu.cli.x"):
+# "h3dgs_tpu." not preceded by a name character or a dot.
+JAX_MODULE_IN_STRING = re.compile(r"(?<![\w.])h3dgs_tpu\.")
+_SUBPROCESS_CALLS = ("run", "Popen", "call", "check_call", "check_output")
+
+
+def _banned(name) -> bool:
+    return (isinstance(name, str)
+            and name.split(".")[0].strip() in BANNED_ROOTS)
+
+
+def _const(node):
+    return node.value if isinstance(node, ast.Constant) else None
+
+
+def jax_references(source: str, path: str = "<src>") -> list:
+    """Where ``source`` imports jax or the JAX package, names a module of
+    the JAX package in a string literal, imports one through
+    ``importlib.import_module`` / ``__import__``, or starts one in a child
+    process (``-m <module>`` or ``-c <code>`` in an argument list)."""
+    bad = []
+
+    def flag(node, what):
+        bad.append(f"{path}:{getattr(node, 'lineno', 0)} {what}")
+
+    for node in ast.walk(ast.parse(source, path)):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if _banned(a.name):
+                    flag(node, f"imports {a.name}")
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and _banned(node.module or ""):
+                flag(node, f"imports {node.module}")
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if JAX_MODULE_IN_STRING.search(node.value):
+                flag(node, f"names a JAX module in {node.value[:60]!r}")
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = (fn.attr if isinstance(fn, ast.Attribute)
+                    else fn.id if isinstance(fn, ast.Name) else "")
+            if (name in ("import_module", "__import__") and node.args
+                    and _banned(_const(node.args[0]))):
+                flag(node, f"{name}({_const(node.args[0])!r})")
+            if name in _SUBPROCESS_CALLS or name.startswith("exec"):
+                for arg in node.args:
+                    elts = getattr(arg, "elts", None) or []
+                    for flag_node, nxt in zip(elts, elts[1:]):
+                        opt, val = _const(flag_node), _const(nxt)
+                        if opt == "-m" and _banned(val):
+                            flag(node, f"starts -m {val}")
+                        elif opt == "-c" and isinstance(val, str) and \
+                                jax_references(val, "-c"):
+                            flag(node, f"starts -c {val[:60]!r}")
+    return bad
+
+
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py, imports jax or the JAX
-    package, at any nesting level."""
+    package (at any nesting level, also through importlib), names a module
+    of the JAX package in a string, or starts one in a child process."""
     files = _port_sources()
     assert len(files) > 15
     bad = []
     for path in files:
         with open(path) as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""] if node.level == 0 else []
-            else:
-                continue
-            for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "h3dgs_tpu"):
-                    bad.append(f"{os.path.relpath(path, REPO)}:"
-                               f"{node.lineno} imports {name}")
+            bad += jax_references(f.read(), os.path.relpath(path, REPO))
     assert not bad, bad
+
+
+@pytest.mark.parametrize("source,caught", [
+    ("import jax.numpy as jnp", True),
+    ("from h3dgs_tpu.hierarchy import tree", True),
+    ("def f():\n    from jax import lax", True),
+    ("cmd = [py, '-m', 'h3dgs_tpu.cli.train_single', '-s', src]", True),
+    ("x = 'python -m h3dgs_tpu.cli.full_train --project_dir p'", True),
+    ("import importlib\nm = importlib.import_module('h3dgs_tpu')", True),
+    ("m = __import__('jax')", True),
+    ("subprocess.run([sys.executable, '-m', 'h3dgs_tpu'])", True),
+    ("subprocess.Popen([py, '-c', 'import jax; print(1)'])", True),
+    ("cmd = [py, '-m', 'h3dgs_tpu_torch.cli.train_single']", False),
+    ("from h3dgs_tpu_torch.hierarchy import tree", False),
+    ("doc = 'counterpart of h3dgs_tpu/cli/full_train.py'", False),
+    ("subprocess.run([py, '-c', 'import torch'])", False),
+])
+def test_import_guard_catches(source, caught):
+    """The guard's own cases: each way of reaching the JAX package is
+    flagged, the port's own names are not."""
+    assert bool(jax_references(source)) == caught, source
 
 
 def test_entry_points_need_cuda_or_a_device(tmp_path, monkeypatch):
     """Without CUDA and without an explicit device, the entry points raise
     instead of falling back to the CPU."""
+    from h3dgs_tpu_torch.cli import render_hierarchy
+    from h3dgs_tpu_torch.eval import metrics
     from h3dgs_tpu_torch.model.state import from_arrays
-    from h3dgs_tpu_torch.render import render_post
+    from h3dgs_tpu_torch.render import render, render_post
     from h3dgs_tpu_torch.viewer import service
+
+    from .utils import write_random_lpips_weights
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path, h = write_hier_pair(tmp_path, n=20, seed=1)
@@ -116,6 +189,16 @@ def test_entry_points_need_cuda_or_a_device(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         render_post(cam, state, h.nodes, h.boxes, 0.05, np.zeros(3),
                     max_cut=h.n_nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render(cam, state, np.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_hierarchy.main(["-s", str(tmp_path), "--hierarchy", path,
+                               "-m", os.path.join(str(tmp_path), "eval")])
+    weights = write_random_lpips_weights(tmp_path / "lpips.npz")
+    img = np.full((3, 16, 16), 0.5, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        metrics.lpips(img, img, weights_path=weights)
+    assert metrics.lpips(img, img, weights_path=weights, device="cpu") == 0
     # Asking for the CPU works.
     r = service.HierarchyRenderer(path, sh_degree=1, device="cpu")
     img, _ = r.render(cam, tau=3.0)

@@ -488,3 +488,172 @@ def test_pack_prepass_and_occupancy():
     for name in ("blend_fwd", "blend_bwd"):
         blocks, threads = kernels.occupancy(name)
         assert blocks >= 1 and threads == 256
+
+
+# ------------------------------------------------------------ evaluation ---
+
+@pytest.mark.cuda
+def test_lpips_card_matches_float64(tmp_path):
+    """LPIPS on the card (cuDNN convolutions, TF32 switched off for them;
+    ``chip_smoke.py``'s synthetic weights) within ``chip_smoke.LPIPS_REL``
+    relative of the same network in float64 on the CPU, and the same
+    distance with TF32 allowed beyond it (so the limit tells the two
+    apart); TF32 left as it was outside the call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import LPIPS_REL, synthetic_lpips_weights
+    from h3dgs_tpu_torch.eval import metrics
+
+    path = str(tmp_path / "lpips.npz")
+    arrays = synthetic_lpips_weights(path)
+    rng = np.random.default_rng(1)
+    a = rng.uniform(0, 1, (3, 180, 320)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    cudnn = torch.backends.cudnn
+    tf32 = cudnn.allow_tf32
+    got = metrics.lpips(a, b, weights_path=path)
+    assert cudnn.allow_tf32 == tf32
+    net = metrics.LPIPSNet(arrays).cuda()
+    x = torch.as_tensor(np.stack([a, b])).cuda() * 2.0 - 1.0
+    with torch.no_grad(), cudnn.flags(
+            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+            deterministic=cudnn.deterministic, allow_tf32=True):
+        got_tf32 = float(net.distance(net.features(x)))
+    net64 = metrics.LPIPSNet(arrays).double()
+    with torch.no_grad():
+        want = float(net64(torch.as_tensor(a), torch.as_tensor(b)))
+    assert want > 0 and abs(got - want) <= LPIPS_REL * want, (got, want)
+    assert abs(got_tf32 - want) > LPIPS_REL * want, (got_tf32, want)
+    assert metrics.lpips(a, a, weights_path=path) < 1e-6
+
+
+@pytest.mark.cuda
+def test_render_on_card_matches_cpu():
+    """``render`` with an exact index subset and a trained exposure on the
+    card (one K1 launch) against the same call with ``device="cpu"``: the
+    image within 1/255 but for termination flips (at most 1e-3 of the
+    values), visibility and radii scattered back equal, zero off the
+    subset; ``render_coarse`` the same way without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from h3dgs_tpu_torch import render as render_lib
+    from h3dgs_tpu_torch.model import state as state_lib
+
+    rng = np.random.default_rng(4)
+    n, cap = 300, 320
+    quats = rng.normal(size=(n, 4))
+    opac = rng.uniform(0.3, 0.95, (n, 1))
+    st = state_lib.from_arrays(
+        rng.uniform(-1, 1, (n, 3)), rng.uniform(-0.6, 0.6, (n, 1, 3)),
+        rng.normal(0, 0.1, (n, 3, 3)), np.log(opac / (1 - opac)),
+        np.log(rng.uniform(0.04, 0.15, (n, 3))),
+        quats / np.linalg.norm(quats, axis=1, keepdims=True),
+        capacity=cap, max_sh_degree=1, device="cpu")
+    cam = look_at_camera(eye=(0.3, -0.2, -3.2), target=(0, 0, 0), fovx=1.0,
+                         width=160, height=120)
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    exp = np.eye(3, 4, dtype=np.float32)
+    exp[0, 0], exp[2, 1], exp[1, 3] = 0.9, 0.05, 0.02
+    idx = np.arange(3, n, 2)
+
+    def run(device):
+        return render_lib.render(cam, st, bg, use_trained_exp=True,
+                                 exposure=torch.as_tensor(exp),
+                                 indices=torch.as_tensor(idx), device=device)
+
+    kernels.reset_launches()
+    card = run(None)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["blend_fwd"] == 1
+    cpu = run("cpu")
+    assert card["render"].is_cuda and set(card) == set(cpu)
+    d = (card["render"].cpu() - cpu["render"]).abs()
+    assert (d > 1.0 / 255).float().mean() <= 1e-3, float(d.max())
+    assert float(card["render"].min()) >= 0 and float(card["render"].max()) <= 1
+    vis = card["visibility_filter"].cpu()
+    assert torch.equal(vis, cpu["visibility_filter"])
+    assert torch.equal(card["radii"].cpu(), cpu["radii"])
+    rows = np.zeros(cap, bool)
+    rows[idx] = True
+    assert int(vis.sum()) > 20 and not vis[~rows].any()
+    assert not card["radii"].cpu()[~rows].any()
+
+    card, cpu = (render_lib.render_coarse(cam, st, bg, device=dev)
+                 for dev in (None, "cpu"))
+    d = (card["render"].cpu() - cpu["render"]).abs()
+    assert (d > 1.0 / 255).float().mean() <= 1e-3, float(d.max())
+    assert torch.equal(card["radii"].cpu(), cpu["radii"])
+
+
+def _write_tiny_scene(root, n=80, n_views=3, width=64, height=48):
+    """A COLMAP scene written with ``chip_smoke.py``'s writers (the card's
+    machine has no JAX): ground-truth PNGs rendered on the card, and the
+    hierarchy of a perturbed copy of the Gaussians. Returns the
+    hierarchy's path."""
+    import os
+
+    from chip_smoke import colmap_points, write_views
+    from h3dgs_tpu_torch.hierarchy.io import write_hier
+    from h3dgs_tpu_torch.hierarchy.tree import build_hierarchy
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+
+    rng = np.random.default_rng(3)
+    means = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    scales = np.exp(rng.uniform(np.log(0.06), np.log(0.18), (n, 3)))
+    quats = np.tile(np.array([1.0, 0, 0, 0]), (n, 1))
+    opac = rng.uniform(0.5, 0.95, n)
+    shs = np.zeros((n, 16, 3))
+    shs[:, 0] = rng.uniform(-0.6, 0.6, (n, 3))
+    os.makedirs(os.path.join(root, "images"))
+    cameras = [look_at_camera(eye=(4 * np.sin(a), -0.8, -4 * np.cos(a)),
+                              target=(0, 0, 0), fovx=1.1, width=width,
+                              height=height)
+               for a in np.linspace(0, 2 * np.pi, n_views, endpoint=False)]
+    gt = [torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+          for x in (means, scales, quats, opac, shs)]
+    cams, imgs, _ = write_views(root, cameras, gt, depths=False)
+    colmap_io.write_model_binary(os.path.join(root, "sparse", "0"), cams,
+                                 imgs, colmap_points(means, shs, rng))
+    hshs = shs + np.concatenate([rng.normal(0, 0.1, (n, 1, 3)),
+                                 np.zeros((n, 15, 3))], axis=1)
+    h = build_hierarchy(means + rng.normal(0, 0.02, means.shape), hshs,
+                        opac * 0.9, np.log(scales), quats)
+    path = os.path.join(root, "merged.hier")
+    write_hier(path, h)
+    return path
+
+
+@pytest.mark.cuda
+def test_render_hierarchy_on_card(tmp_path, monkeypatch):
+    """``render_hierarchy`` on the card and on the CPU over the same tiny
+    scene: K1 launched once per view and tau on the card; the same cut
+    sizes; PSNR within 0.05 dB, SSIM within 1e-4, LPIPS (synthetic weights)
+    within 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import synthetic_lpips_weights
+    from h3dgs_tpu_torch.cli import render_hierarchy
+    from h3dgs_tpu_torch.eval import metrics
+
+    root = str(tmp_path / "scene")
+    hier = _write_tiny_scene(root)
+    weights = str(tmp_path / "lpips.npz")
+    synthetic_lpips_weights(weights)
+    monkeypatch.setenv(metrics.LPIPS_WEIGHTS_ENV, weights)
+    argv = ["-s", root, "--hierarchy", hier, "--taus", "0", "30",
+            "--no_images"]
+    kernels.reset_launches()
+    card = render_hierarchy.main(argv + ["-m", str(tmp_path / "card")])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"blend_fwd": 3 * 2, "blend_bwd": 0,
+                                "ssim": 0}
+    cpu = render_hierarchy.main(argv + ["-m", str(tmp_path / "cpu"),
+                                        "--device", "cpu"])
+    for tau in (0.0, 30.0):
+        g, w = card[tau], cpu[tau]
+        assert (g["cut_mean"], g["cut_min"], g["cut_max"]) == \
+            (w["cut_mean"], w["cut_min"], w["cut_max"])
+        assert abs(g["psnr"] - w["psnr"]) <= 0.05, (g, w)
+        assert abs(g["ssim"] - w["ssim"]) <= 1e-4, (g, w)
+        assert abs(g["lpips"] - w["lpips"]) <= 1e-4 * w["lpips"], (g, w)
+    assert card[30.0]["cut_mean"] < card[0.0]["cut_mean"]
