@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port: the serving path, the
-per-chunk training path and the hierarchy post-training path.
+"""On-card smoke run of the PyTorch/CUDA port: the serving path (with
+pixel bands and the browser viewer), the per-chunk training path (one and
+four views a step), the hierarchy post-training path (one and four views
+a step), the merger, the evaluation and the orchestrator.
 
 Drives ``h3dgs_tpu_torch`` end to end on one NVIDIA GPU at real sizes.
 Serving: a seeded synthetic hierarchy of 1,000,000 leaves (the wavy
@@ -25,7 +27,13 @@ splitting the training chunk at X = 0, the ``merged.hier`` served, and
 evaluated by ``render_hierarchy.main`` on the 24 views at tau in {0, 3,
 6, 15} (PSNR, SSIM, LPIPS with synthetic weights). Orchestration:
 ``python -m h3dgs_tpu_torch.cli.full_train`` on a two-chunk project at a
-reduced size, then again with ``--skip_if_exists``.
+reduced size, then again with ``--skip_if_exists``. Several views a
+step: the chunk trained through ``train_single --views_per_step 4`` (40
+iterations, then 10 with the fused loss) and the hierarchy post-trained
+through ``train_post --views_per_step 4`` (20 iterations); pixel bands of
+the serving frame; ``WebViewer`` over HTTP; both hierarchy backends (C++,
+built from ``native/hierarchy_native.cpp``, and numpy) for creation and
+merging; the trained state through the packed ``.pt`` format.
 
 Phases, each failing the run with its traceback:
   1. card name and power limit (nvidia-smi); fails without CUDA;
@@ -36,19 +44,30 @@ Phases, each failing the run with its traceback:
      after: renderer frames for every tau, then 3 socket requests through
      ``serve()`` whose replies are checked against ``renderer.render``;
   5. per-stage times with CUDA events (select, interpolate, project, bin,
-     blend kernel, total) at each tau;
+     blend kernel, total) at each tau; then, counted, the tau-0 cut in 2
+     and 4 pixel bands (``render_banded`` on repeated ``cuda`` devices:
+     bit-equal to the full frame, K1 once per band) and 3 ``/frame``
+     requests to ``WebViewer`` (PNGs equal to ``renderer.render``);
   6. write the training chunk;
   7. the training path, counted the same way: ``train_single.main`` for 80
      iterations; loss finite and falling, artifacts written and read back,
      locked skybox rows unchanged; step time and its per-stage split;
-  8. the fused-loss training path, counted: 20 iterations with
-     ``H3DGS_FUSED_SSIM=1``;
-  9. hierarchy creation from the trained point cloud; the post-training
-     paths, counted: 60 iterations, 20 with the fused loss, a resumed run;
-     locked rows bit-equal, no cut truncated, ``<hier>_opt`` read back,
-     validated and rendered; the post step's time, stages and busy share;
- 10. the evaluation path, counted: merge (validated, leaves counted
-     independently), one served frame of ``merged.hier``, the tau sweep
+  8. a 4-view dp step's gradients against the mean of 4 single-view
+     gradients; the busy share of a 4-view step; the trained state saved
+     and loaded in the ``.pt`` format; the fused-loss training path,
+     counted: 20 iterations with ``H3DGS_FUSED_SSIM=1``; then 4 views a
+     step, counted: 40 iterations (loss falling, locked rows bit-equal,
+     K1 and K2 once per view, views/s against one view a step) and 10
+     with the fused loss (K3 once per view);
+  9. hierarchy creation from the trained point cloud with both backends
+     (structure equal, leaves equal as a set); the post-training paths,
+     counted: 60 iterations (the step after the checkpoint write timed on
+     its own), 20 with the fused loss, a resumed run, 20 iterations of 4
+     views a step; locked rows bit-equal, no cut truncated,
+     ``<hier>_opt`` read back, validated and rendered; the post step's
+     time, stages and busy share;
+ 10. the evaluation path, counted: merge with both backends (validated,
+     leaves counted independently), one served frame of ``merged.hier``, the tau sweep
      (K1 once per frame, metrics finite, cuts coarsening with tau, per-
      frame render and metric times), LPIPS on the card against float64
      on the CPU;
@@ -88,6 +107,10 @@ N_CAMS = 16
 BUDGET = 1 << 20
 SERVE_TAU = 3.0
 N_SERVE = 3
+# Pixel bands of the serving frame on repeated devices of the one card,
+# and the browser viewer's frames.
+BAND_COUNTS = (2, 4)
+N_WEB = 3
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
@@ -124,6 +147,21 @@ FUSED_ITERS = 20
 POST_ITERS = 60
 POST_RESUMED = 4
 POST_FUSED_ITERS = 20
+# Several views a step (parallel/step.py) on the same chunk and hierarchy:
+# DP_VIEWS views a step, DP_ITERS flat iterations, DP_FUSED_ITERS with the
+# fused loss, DP_POST_ITERS post iterations.
+DP_VIEWS = 4
+DP_ITERS = 40
+DP_FUSED_ITERS = 10
+DP_POST_ITERS = 20
+# The dp step's accumulated gradients against the float64 mean of the
+# views' single-view gradients, per group, relative to the group's largest
+# value. K2 sums each Gaussian's gradient with float atomics whose order
+# changes from launch to launch (the kernel check below allows BWD_TOL_REL
+# = 1e-3 per output against the plain version; launches of the same
+# inputs measured within 4.4e-5 of the largest value, PERF.md); four
+# float32 additions add a few ulps.
+ACCUM_TOL = 1e-4
 TRAIN_FLAGS = ["--densify_from_iter", "20", "--densification_interval",
                "30", "--opacity_reset_interval", "70", "--disable_viewer"]
 # Evaluation: the post phase's <hier>_opt merged from two chunks that split
@@ -339,6 +377,108 @@ def main_path(renderer, cams, look_at_camera, serve):
     server.join(timeout=30)
     assert not server.is_alive(), "serve() did not stop"
     return frames, served
+
+
+def bands_phase(renderer, cams):
+    """The serving renderer's cut at tau 0 for one orbit camera, rendered
+    whole and in BAND_COUNTS pixel bands on repeated ``cuda`` devices
+    (``render_banded``), each banded run counted: every output equal to
+    the full frame bit for bit, K1 launched once per band; then the
+    renderer itself with its frames in bands, equal to its whole frames.
+    Returns the launch counts per band count."""
+    from h3dgs_tpu_torch.ops.rasterize import rasterize
+    from h3dgs_tpu_torch.parallel.band_render import render_banded
+
+    cam = cams[0].to(renderer.device)
+    renderer._cut_cache = None
+    (xyz, scales, quats, opac, shs), count, _, _ = renderer._cut_for(cam,
+                                                                     0.0)
+    k = (renderer.sh_degree + 1) ** 2
+    flat = (xyz, scales, quats, opac, shs[:, :k], cam, renderer.sh_degree,
+            renderer.bg)
+    full = rasterize(*flat)
+    full_ms = time_ms(lambda: rasterize(*flat), 5)
+    out = {}
+    for n in BAND_COUNTS:
+        bands, counts = counted(render_banded, *flat, [DEVICE] * n)
+        assert counts == {"blend_fwd": n, "blend_bwd": 0, "ssim": 0}, counts
+        for key in ("render", "invdepth", "final_transmittance", "radii"):
+            assert torch.equal(bands[key], full[key]), (n, key)
+        ms = time_ms(lambda: render_banded(*flat, [DEVICE] * n), 5)
+        log(f"{n} pixel bands on one card (render_banded, tau 0, cut "
+            f"{int(count)}, {cam.width}x{cam.height}): every output equal "
+            f"to the full frame bit for bit; K1 launches {counts['blend_fwd']}"
+            f"; {ms:.3f} ms a frame against {full_ms:.3f} ms whole (CUDA "
+            f"events, projection once per band)")
+        out[f"bands_{n}"] = counts
+    whole, _ = renderer.render(cams[1], 0.0)
+    renderer.band_devices = [torch.device(DEVICE)] * BAND_COUNTS[0]
+    try:
+        split, _ = renderer.render(cams[1], 0.0)
+    finally:
+        renderer.band_devices = None
+    assert np.array_equal(whole, split), "banded renderer frame differs"
+    log(f"HierarchyRenderer with {BAND_COUNTS[0]} bands: frame equal to "
+        f"its whole frame")
+    return out
+
+
+def web_phase(renderer, look_at_camera):
+    """``WebViewer`` over the serving renderer: ``/info``, then N_WEB
+    ``/frame`` requests at WIDTH x HEIGHT from distinct poses, counted
+    around each request; every PNG decoded equal to ``renderer.render`` of
+    the same camera (rendered after the request, outside the counts);
+    milliseconds per frame (render + PNG encode, client clock). Returns
+    the launch counts of the requests."""
+    import http.client
+
+    from h3dgs_tpu_torch.io.image import decode_png
+    from h3dgs_tpu_torch.ops import kernels
+    from h3dgs_tpu_torch.viewer.web import WebViewer
+
+    viewer = WebViewer(renderer, port=0, tau=SERVE_TAU).start()
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    ms = []
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", viewer.port,
+                                          timeout=120)
+        conn.request("GET", "/info")
+        info = json.loads(conn.getresponse().read())
+        assert info["n_nodes"] == renderer.h.n_nodes, info
+        c = info["center"]
+        for i in range(N_WEB):
+            a = 2 * np.pi * i / N_WEB
+            eye = (c[0] + 5 * np.sin(a), c[1] - 2.0, c[2] - 5 * np.cos(a))
+            url = (f"/frame?ex={eye[0]}&ey={eye[1]}&ez={eye[2]}&tx={c[0]}"
+                   f"&ty={c[1]}&tz={c[2]}&fovx=1.2&w={WIDTH}&h={HEIGHT}"
+                   f"&tau={SERVE_TAU}")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            conn.request("GET", url)
+            resp = conn.getresponse()
+            body = resp.read()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            for k, v in kernels.LAUNCHES.items():
+                counts[k] += v
+            assert resp.status == 200, body[:200]
+            img = decode_png(body)
+            cam = look_at_camera(eye=eye, target=tuple(c), fovx=1.2,
+                                 width=WIDTH, height=HEIGHT)
+            want, st = renderer.render(cam, SERVE_TAU)
+            assert np.array_equal(img, want), "web frame != render()"
+            assert int(resp.getheader("X-Cut-Size")) == st["cut_size"]
+            assert want.max() > 0
+        conn.close()
+    finally:
+        viewer.stop()
+    assert counts["blend_fwd"] == N_WEB, counts
+    log(f"web viewer: /info, then {N_WEB} /frame requests at {WIDTH}x"
+        f"{HEIGHT} each decoded equal to renderer.render; "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms a frame (render + PNG "
+        f"encode + transfer, client clock; {len(body) / 1e6:.2f} MB the "
+        f"last); kernel launches {counts}")
+    return {"web": counts}
 
 
 def stage_times(renderer, cams, tau):
@@ -629,7 +769,26 @@ def _run_observed(main, loop_attr: str, observed_of, argv, fused: bool):
     rec["depth"] = [float(x) for x in rec["depth"]]
     evs = rec.pop("events")
     rec["step_ms"] = [a[1].elapsed_time(b[1]) for a, b in zip(evs, evs[1:])]
+    rec["step_it"] = [b[0] for b in evs[1:]]
     return rec
+
+
+def steady_ms(rec, writes=()):
+    """The steady window of a run's step times: the intervals that end at
+    iteration 6 or later (the first hold the warm-up), less those that
+    also hold an artifact write (a checkpoint or save at an iteration of
+    ``writes`` happens after that iteration's step, so it falls in the
+    next interval). Returns (window, {iteration: ms} of the intervals
+    left out)."""
+    window, left = [], {}
+    for it, ms in zip(rec["step_it"], rec["step_ms"]):
+        if it < 6:
+            continue
+        if it - 1 in writes:
+            left[it] = ms
+        else:
+            window.append(ms)
+    return window, left
 
 
 def _step_recorder(rec):
@@ -679,7 +838,9 @@ def run_post_cli(argv, fused: bool = False):
     state. Under "cuts", per step: the cut size the step reported, the
     rows it handed to the rasterizer less the skybox, and the cut mask's
     count computed here afterwards from the step's camera and limit (the
-    three are equal unless a cut was truncated)."""
+    three are equal unless a cut was truncated). With several views a
+    step, "cuts" holds per step the reported size (the largest of the
+    step's views) and the (rows, mask count) pair of each view."""
     from h3dgs_tpu_torch.cli import train_post
     from h3dgs_tpu_torch.hierarchy.cut import cut_mask
     from h3dgs_tpu_torch.train import post_step
@@ -721,12 +882,15 @@ def run_post_cli(argv, fused: bool = False):
                 post_step.splat_cut_gaussians = splat0
             nodes = torch.as_tensor(scene.hierarchy.nodes, device=st.device)
             boxes = torch.as_tensor(scene.hierarchy.boxes, device=st.device)
-            assert len(reported) == len(selected) == len(splatted)
-            rec["cuts"] = [
-                (int(c), rows - st.n_skybox,
+            assert len(selected) == len(splatted)
+            views = len(selected) // len(reported)
+            assert views * len(reported) == len(selected)
+            per_view = [
+                (rows - st.n_skybox,
                  int(cut_mask(nodes, boxes, limit, center)[0].sum()))
-                for c, rows, (center, limit)
-                in zip(reported, splatted, selected)]
+                for rows, (center, limit) in zip(splatted, selected)]
+            rec["cuts"] = [(int(c), per_view[i * views:(i + 1) * views])
+                           for i, c in enumerate(reported)]
             rec["state"], rec["scene"] = state, scene
             return state
         return observed
@@ -816,36 +980,37 @@ def train_stage_times(state, batch, sh_degree: int, opt_cfg, reps: int = 5):
 
 
 def flat_step_runner(state, batch):
-    """A closure that takes one flat train step on ``batch`` from
-    ``state`` (the state is not advanced: every call does the same
-    work)."""
+    """A closure that takes one flat train step on ``batch`` (one view or
+    a list of views) from ``state`` (the state is not advanced: every call
+    does the same work)."""
     from h3dgs_tpu_torch.config import OptimizationConfig
     from h3dgs_tpu_torch.ops import adam as adam_lib
     from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
-    from h3dgs_tpu_torch.train.step import make_train_step
+    from h3dgs_tpu_torch.parallel.step import make_dp_train_step
 
-    step = make_train_step(OptimizationConfig(), RasterizeConfig())
+    views = batch if isinstance(batch, list) else [batch]
+    step = make_dp_train_step(OptimizationConfig(), RasterizeConfig())
     opt = adam_lib.init(state.trainable_dict())
     exposure = torch.eye(3, 4, device=state.device).repeat(
-        int(batch.image_idx) + 1, 1, 1)
+        max(int(v.image_idx) for v in views) + 1, 1, 1)
     exp_opt = adam_lib.init({"exposure": exposure})
     bg = torch.zeros(3, device=state.device)
-    return lambda: step(state, opt, exposure, exp_opt, batch, 50, bg, 5.0,
+    return lambda: step(state, opt, exposure, exp_opt, views, 50, bg, 5.0,
                         5.0, 0)
 
 
-def profile_steps(run, what: str, n_steps: int = 5):
+def profile_steps(run, what: str, tmp: str, n_steps: int = 5):
     """Device time of ``n_steps`` calls of ``run`` (one step each) under
-    ``torch.profiler``: the busy share of the wall time and the kernels
-    that take the most device time. Prints "not measured" when the
-    profiler records no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+    ``utils/profiling.trace`` (torch.profiler over the CPU and the card):
+    the busy share of the wall time and the kernels that take the most
+    device time. Prints "not measured" when the profiler records no
+    device activity."""
+    from h3dgs_tpu_torch.utils.profiling import trace
 
     for _ in range(2):
         run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(os.path.join(tmp, "trace")) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             run()
@@ -861,7 +1026,7 @@ def profile_steps(run, what: str, n_steps: int = 5):
         log(f"profile of the {what}: no device activity recorded "
             f"(device busy share not measured)")
         return
-    log(f"profile of {n_steps} {what}s on one view: wall "
+    log(f"profile of {n_steps} {what}s: wall "
         f"{wall_ms / n_steps:.3f} ms per step, device kernels "
         f"{device_ms / n_steps:.3f} ms per step, device busy "
         f"{100 * device_ms / wall_ms:.1f} % of the wall time")
@@ -1256,9 +1421,12 @@ def counted(fn, *args, **kw):
 
 def training_phase(tmp: str, rng, look_at_camera):
     """Write the chunk, train through the CLI (plain loss, then fused),
-    check the runs, then create the hierarchy from the trained point cloud
-    and post-train it (``post_phase``). Returns (counts per path, K2
-    inputs with a view's render and target for K3)."""
+    check the runs, hold several views a step on the card against the mean
+    of single views (``accumulation_check``), save and load the trained
+    state in the ``.pt`` format (``pt_check``), train 4 views a step
+    (``dp_train_phase``), then create the hierarchy from the trained point
+    cloud and post-train it (``post_phase``). Returns (counts per path,
+    K2 inputs with a view's render and target for K3)."""
     from h3dgs_tpu_torch.config import OptimizationConfig
     from h3dgs_tpu_torch.io.meta import read_exposure_json
     from h3dgs_tpu_torch.io.ply import read_gaussian_ply
@@ -1290,11 +1458,12 @@ def training_phase(tmp: str, rng, look_at_camera):
     assert last < first, (first, last)
     assert counts["blend_fwd"] >= TRAIN_ITERS and \
         counts["blend_bwd"] >= TRAIN_ITERS, counts
-    steady = rec["step_ms"][4:]
+    steady, _ = steady_ms(rec)
+    one_view_ms = float(np.median(steady))
     log(f"step time (CUDA events between step ends, iterations 6-"
         f"{TRAIN_ITERS}, densify and reset steps included): median "
-        f"{np.median(steady):.3f} ms, min {np.min(steady):.3f}, max "
-        f"{np.max(steady):.3f}; {1e3 / np.median(steady):.2f} it/s")
+        f"{one_view_ms:.3f} ms, min {np.min(steady):.3f}, max "
+        f"{np.max(steady):.3f}; {1e3 / one_view_ms:.2f} it/s")
     state = rec["state"]
     log(f"final alive {int(state.n_alive)} of capacity {state.capacity}")
     for k in rec["locked0"]:
@@ -1312,14 +1481,19 @@ def training_phase(tmp: str, rng, look_at_camera):
 
     # Per-stage split of one step on the final state.
     scene = rec["scene"]
-    view = load_view(scene.info.train_cameras[0], -1)
-    batch = batch_to_device(encode_view(view), DEVICE)
+    batches = [batch_to_device(encode_view(load_view(info, -1)), DEVICE)
+               for info in scene.info.train_cameras[:DP_VIEWS]]
+    batch = batches[0]
     stages, k2_inputs = train_stage_times(state, batch, 0,
                                           OptimizationConfig())
     log("train step stages (ms, CUDA events, mean of 5, one view): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    profile_steps(flat_step_runner(state, batch), "train step")
-    del rec, scene, state
+    profile_steps(flat_step_runner(state, batch), "train step", tmp)
+    accumulation_check(state, batches)
+    profile_steps(flat_step_runner(state, batches), f"{DP_VIEWS}-view "
+                  f"train step", tmp)
+    pt_check(scene, state)
+    del rec, scene, state, batches, batch
 
     out_f = os.path.join(tmp, "model_fused")
     rec_f, counts_f = counted(run_train_cli, base + [
@@ -1327,16 +1501,178 @@ def training_phase(tmp: str, rng, look_at_camera):
     assert all(math.isfinite(x) for x in rec_f["photo"] + rec_f["depth"])
     log(f"train_single fused SSIM ({FUSED_ITERS} iterations): photo loss "
         f"first {rec_f['photo'][0]:.5f}, last {rec_f['photo'][-1]:.5f}, "
-        f"median step {np.median(rec_f['step_ms'][4:]):.3f} ms; kernel "
+        f"median step {np.median(steady_ms(rec_f)[0]):.3f} ms; kernel "
         f"launches {counts_f}")
     assert counts_f["ssim"] >= FUSED_ITERS, counts_f
     del rec_f
     torch.cuda.empty_cache()
+    dp_counts = dp_train_phase(tmp, base, one_view_ms)
+    torch.cuda.empty_cache()
     post_counts = post_phase(tmp, out, src, sc_dir, look_at_camera)
     torch.cuda.empty_cache()
     eval_counts = eval_phase(tmp, out, src, sc_dir, look_at_camera)
-    return ({"train": counts, "fused": counts_f, **post_counts,
-             **eval_counts}, k2_inputs)
+    return ({"train": counts, "fused": counts_f, **dp_counts,
+             **post_counts, **eval_counts}, k2_inputs)
+
+
+def dp_train_phase(tmp: str, base, one_view_ms: float):
+    """``train_single --views_per_step 4`` on the chunk: DP_ITERS
+    iterations (DP_VIEWS * DP_ITERS views), counted; loss falling, locked
+    rows bit-equal, K1 and K2 once per view; views/s against the one-view
+    run's. Then DP_FUSED_ITERS iterations with the fused loss (K3 once per
+    view). Returns the launch counts of both runs."""
+    out = os.path.join(tmp, "model_dp")
+    t0 = time.perf_counter()
+    rec, counts = counted(run_train_cli, base + [
+        "-m", out, "--iterations", str(DP_ITERS), "--views_per_step",
+        str(DP_VIEWS)])
+    wall = time.perf_counter() - t0
+    photo = rec["photo"]
+    n_views = DP_ITERS * DP_VIEWS
+    assert len(photo) == DP_ITERS, len(photo)
+    assert all(math.isfinite(x) for x in photo + rec["depth"]), photo
+    first, last = np.mean(photo[:10]), np.mean(photo[-10:])
+    log(f"train_single --views_per_step {DP_VIEWS} ({DP_ITERS} iterations, "
+        f"{n_views} views, {wall:.1f} s wall incl. scene load): photo loss "
+        f"(mean of the step's views) first 10 mean {first:.5f}, last 10 "
+        f"mean {last:.5f}; kernel launches {counts}")
+    assert last < first, (first, last)
+    assert counts["blend_fwd"] >= n_views and \
+        counts["blend_bwd"] >= n_views, counts
+    for k in rec["locked0"]:
+        assert torch.equal(rec["locked0"][k], rec["locked1"][k]), k
+    steady, _ = steady_ms(rec)
+    med = float(np.median(steady))
+    log(f"{DP_VIEWS}-view step time (CUDA events between step ends, "
+        f"iterations 6-{DP_ITERS}, densify step included): median "
+        f"{med:.3f} ms, min {np.min(steady):.3f}, max {np.max(steady):.3f}"
+        f"; {DP_VIEWS * 1e3 / med:.2f} views/s against "
+        f"{1e3 / one_view_ms:.2f} views/s one view a step "
+        f"({DP_VIEWS * one_view_ms / med:.3f}x); locked skybox rows "
+        f"({rec['n_locked']}) bit-equal; final alive "
+        f"{int(rec['state'].n_alive)} of {rec['state'].capacity}")
+    del rec
+    torch.cuda.empty_cache()
+
+    rec_f, counts_f = counted(run_train_cli, base + [
+        "-m", os.path.join(tmp, "model_dp_fused"), "--iterations",
+        str(DP_FUSED_ITERS), "--views_per_step", str(DP_VIEWS)], fused=True)
+    assert all(math.isfinite(x) for x in rec_f["photo"] + rec_f["depth"])
+    n_fused = DP_FUSED_ITERS * DP_VIEWS
+    log(f"train_single --views_per_step {DP_VIEWS} fused SSIM "
+        f"({DP_FUSED_ITERS} iterations, {n_fused} views): photo loss first "
+        f"{rec_f['photo'][0]:.5f}, last {rec_f['photo'][-1]:.5f}, median "
+        f"step {np.median(steady_ms(rec_f)[0]):.3f} ms; kernel launches "
+        f"{counts_f}")
+    assert counts_f["ssim"] >= n_fused and \
+        counts_f["blend_bwd"] >= n_fused, counts_f
+    del rec_f
+    return {"train_dp": counts, "train_dp_fused": counts_f}
+
+
+def accumulation_check(state, batches):
+    """One DP_VIEWS-view ``make_dp_train_step`` on the card against the
+    mean of the views' single-view gradients (``make_view_grads``, the
+    same kernels), in float32: the gradients the dp step hands to its
+    update, every parameter group and the screen-space offset, within
+    ACCUM_TOL of the group's largest value, and the exposure's."""
+    from h3dgs_tpu_torch.config import OptimizationConfig
+    from h3dgs_tpu_torch.ops import adam as adam_lib
+    from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
+    from h3dgs_tpu_torch.parallel import step as dp_lib
+    from h3dgs_tpu_torch.train.step import make_view_grads
+
+    opt_cfg = OptimizationConfig()
+    n_img = max(int(b.image_idx) for b in batches) + 1
+    exposure = torch.eye(3, 4, device=DEVICE).repeat(n_img, 1, 1)
+    bg = torch.zeros(3, device=DEVICE)
+    seen = {}
+    make_update = dp_lib.make_update
+
+    def recording_update(*a, **kw):
+        update = make_update(*a, **kw)
+
+        def wrapped(state, opt, exposure, exposure_opt, g_params, g_exp,
+                    g_offset, *rest):
+            seen.update({k: v.clone() for k, v in g_params.items()},
+                        _offset=g_offset.clone(), _exposure=g_exp.clone())
+            return update(state, opt, exposure, exposure_opt, g_params,
+                          g_exp, g_offset, *rest)
+        return wrapped
+
+    dp_lib.make_update = recording_update
+    try:
+        step = dp_lib.make_dp_train_step(opt_cfg, RasterizeConfig(),
+                                         skybox_locked=False)
+    finally:
+        dp_lib.make_update = make_update
+    step(state, adam_lib.init(state.trainable_dict()), exposure,
+         adam_lib.init({"exposure": exposure}), batches, 50, bg, 5.0, 5.0, 0)
+    view_grads = make_view_grads(opt_cfg, RasterizeConfig())
+    want = {}
+    for b in batches:
+        g = view_grads(state, exposure, b, 50, bg, 0)
+        parts = dict(g.g_params, _offset=g.g_offset)
+        g_exp = torch.zeros_like(exposure)
+        g_exp[b.image_idx] = g.g_exposure
+        parts["_exposure"] = g_exp
+        for k, v in parts.items():
+            want[k] = want.get(k, 0) + v.double() / len(batches)
+        del g, parts
+    worst = 0.0
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        if scale == 0:
+            assert float(seen[k].abs().max()) == 0, k
+            continue
+        err = float((seen[k].double() - w).abs().max()) / scale
+        worst = max(worst, err)
+        assert err <= ACCUM_TOL, (k, err)
+    log(f"accumulation on the card: {len(batches)}-view dp step's "
+        f"gradients against the float64 mean of {len(batches)} single-view "
+        f"gradients (same kernels): largest |d| {worst:.3e} of the group's "
+        f"largest value (limit {ACCUM_TOL:g}), over "
+        f"{', '.join(sorted(want))}")
+
+
+def pt_check(scene, state):
+    """The trained flat state saved in the packed ``.pt`` format (Scene.save
+    past PLY_MAX_POINTS, lowered to 0 here) and loaded back through
+    Scene's ``.pt`` branch: every array equal."""
+    from h3dgs_tpu_torch.config import ModelConfig
+    from h3dgs_tpu_torch.scene import scene as scene_lib
+
+    limit = scene_lib.PLY_MAX_POINTS
+    scene_lib.PLY_MAX_POINTS = 0
+    t0 = time.perf_counter()
+    try:
+        pc_dir = scene.save(10 ** 6, state)
+    finally:
+        scene_lib.PLY_MAX_POINTS = limit
+    t_save = time.perf_counter() - t0
+    files = sorted(os.listdir(pc_dir))
+    assert "point_cloud.bin" in files and "done_xyz.pt" in files, files
+    size = sum(os.path.getsize(os.path.join(pc_dir, f)) for f in files)
+    t0 = time.perf_counter()
+    loaded = scene_lib.Scene(
+        ModelConfig(source_path=scene.cfg.source_path,
+                    model_path=scene.model_path, pretrained=pc_dir),
+        scene.runtime, load_iteration=None, device=DEVICE).state
+    t_load = time.perf_counter() - t0
+    keep = state.alive.clone()
+    keep[:state.n_scaffold] = True
+    n = int(keep.sum())
+    for k in ("xyz", "features_dc", "opacity", "scaling", "rotation"):
+        assert torch.equal(getattr(loaded, k)[:n], getattr(state, k)[keep]), k
+    assert torch.equal(loaded.features_rest[:n],
+                       state.features_rest[keep])
+    log(f".pt format: {n} rows of the trained state saved by Scene.save "
+        f"(done_*.pt + point_cloud.bin, {size / 1e6:.1f} MB) in "
+        f"{t_save:.1f} s and loaded through Scene's .pt branch in "
+        f"{t_load:.1f} s (incl. the COLMAP scene); every array equal")
+    del loaded
+    import shutil
+    shutil.rmtree(pc_dir)
 
 
 def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
@@ -1352,21 +1688,29 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
     from h3dgs_tpu_torch.train.step import batch_to_device, encode_view
     from h3dgs_tpu_torch.viewer.service import HierarchyRenderer
 
-    # --- hierarchy creation (host) ---
+    # --- hierarchy creation (host), both backends ---
     ply = os.path.join(flat_out, "point_cloud", f"iteration_{TRAIN_ITERS}",
                        "point_cloud.ply")
-    t0 = time.perf_counter()
-    hierarchy_creator.main([ply, src, flat_out, sc_dir])
-    seconds = time.perf_counter() - t0
+    seconds = {}
+    for backend, where in (("native", flat_out),
+                           ("numpy", os.path.join(tmp, "hier_numpy"))):
+        t0 = time.perf_counter()
+        hierarchy_creator.main([ply, src, where, sc_dir, "--backend",
+                                backend])
+        seconds[backend] = time.perf_counter() - t0
     hier = os.path.join(flat_out, "hierarchy.hier")
     h0 = read_hier(hier)
     h0.validate()
     anchors = read_anchors(os.path.join(flat_out, "anchors.bin"))
     assert np.array_equal(anchors, h0.anchors)
     assert 0 < anchors.size < h0.n_nodes, anchors.size
+    h_np = read_hier(os.path.join(tmp, "hier_numpy", "hierarchy.hier"))
+    h_np.validate()
+    same = hierarchies_agree(h0, h_np)
     log(f"hierarchy_creator: {h0.n_nodes} nodes, {h0.n_leaves} leaves, "
-        f"{anchors.size} anchors in {seconds:.1f} s (read, build on the "
-        f"host, write)")
+        f"{anchors.size} anchors; C++ backend {seconds['native']:.1f} s, "
+        f"numpy backend {seconds['numpy']:.1f} s (read, build on the host, "
+        f"write); the two trees: {same}")
 
     # exposure.json of the flat run lies beside hierarchy.hier, so the
     # post step applies each view's trained exposure.
@@ -1388,28 +1732,18 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
         f"; kernel launches {counts}")
     assert counts["blend_fwd"] == POST_ITERS and \
         counts["blend_bwd"] == POST_ITERS and counts["ssim"] == 0, counts
-    cuts = rec["cuts"]
-    assert all(c == r == m for c, r, m in cuts), \
-        "a post step rendered a truncated cut"
-    log(f"cut sizes over the run: min {min(c for c, _, _ in cuts)}, max "
-        f"{max(c for c, _, _ in cuts)} of {h0.n_nodes} nodes; every cut "
-        f"rendered whole (reported size = rows rasterized less the skybox "
-        f"= the cut mask's count, recomputed)")
-    steady = rec["step_ms"][4:]
+    cuts = check_cuts(rec, h0.n_nodes)
+    steady, left = steady_ms(rec, writes=(ckpt_it,))
+    one_view_ms = float(np.median(steady))
     log(f"post step time (CUDA events between step ends, iterations 6-"
-        f"{POST_ITERS}): median {np.median(steady):.3f} ms, min "
-        f"{np.min(steady):.3f}, max {np.max(steady):.3f}; "
-        f"{1e3 / np.median(steady):.2f} it/s")
-    state, locked = rec["state"], rec["locked"]
-    moved = torch.zeros_like(locked)
-    for k, v0 in rec["state0"].items():
-        v1 = state.trainable_dict()[k]
-        assert torch.equal(v0[locked], v1[locked]), f"locked rows of {k} moved"
-        moved |= (v0 != v1).reshape(v0.shape[0], -1).any(dim=1)
-    n_locked, n_moved = int(locked.sum()), int(moved.sum())
-    log(f"locked rows ({n_locked}: {rec['n_anchor']} anchors, "
-        f"{state.n_skybox} skybox) bit-equal to their initial values; "
-        f"{n_moved} of the other {state.capacity - n_locked} rows changed")
+        f"{POST_ITERS} less the step after the checkpoint): median "
+        f"{one_view_ms:.3f} ms, min {np.min(steady):.3f}, max "
+        f"{np.max(steady):.3f}; {1e3 / one_view_ms:.2f} it/s")
+    for it, ms in left.items():
+        log(f"post step {it}, after the checkpoint write of iteration "
+            f"{it - 1}: {ms:.3f} ms")
+    state = rec["state"]
+    n_moved, n_locked = locked_rows_kept(rec)
     assert n_moved > (state.capacity - n_locked) // 4, n_moved
 
     # --- <hier>_opt: read back, validated, rendered ---
@@ -1451,7 +1785,8 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
     opt = adam_lib.init(state.trainable_dict())
     bg = torch.zeros(3, device=DEVICE)
     profile_steps(lambda: step(state, opt, batch, nodes, boxes, amask,
-                               exp_row, limit, 50, bg, 5.0, 0), "post step")
+                               exp_row, limit, 50, bg, 5.0, 0), "post step",
+                  tmp)
     del rec, scene, state, opt, step, batch
 
     # --- resumed from the checkpoint ---
@@ -1472,16 +1807,136 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
         "-m", os.path.join(tmp, "post_fused"), "--iterations",
         str(POST_FUSED_ITERS)], fused=True)
     assert all(math.isfinite(x) for x in rec_f["photo"])
-    assert all(c == r == m for c, r, m in rec_f["cuts"])
+    check_cuts(rec_f, h0.n_nodes)
     log(f"train_post fused SSIM ({POST_FUSED_ITERS} iterations): photo "
         f"loss first {rec_f['photo'][0]:.5f}, last {rec_f['photo'][-1]:.5f}"
-        f", median step {np.median(rec_f['step_ms'][4:]):.3f} ms; kernel "
+        f", median step {np.median(steady_ms(rec_f)[0]):.3f} ms; kernel "
         f"launches {counts_f}")
     assert counts_f == {"blend_fwd": POST_FUSED_ITERS,
                         "blend_bwd": POST_FUSED_ITERS,
                         "ssim": POST_FUSED_ITERS}, counts_f
     del rec_f
-    return {"post": counts, "post_resumed": counts_r, "post_fused": counts_f}
+    torch.cuda.empty_cache()
+    counts_dp = dp_post_phase(tmp, hier, base, h0.n_nodes, one_view_ms)
+    return {"post": counts, "post_resumed": counts_r, "post_fused": counts_f,
+            "post_dp": counts_dp}
+
+
+def check_cuts(rec, n_nodes: int):
+    """Every view's cut rendered whole (rows rasterized less the skybox =
+    the cut mask's count, recomputed), and each step's reported size the
+    largest of its views'. Returns the per-view sizes."""
+    sizes = []
+    for reported, views in rec["cuts"]:
+        assert all(r == m for r, m in views), \
+            "a post step rendered a truncated cut"
+        assert reported == max(r for r, _ in views), (reported, views)
+        sizes += [r for r, _ in views]
+    log(f"cut sizes over the run: min {min(sizes)}, max {max(sizes)} of "
+        f"{n_nodes} nodes over {len(sizes)} views; every cut rendered whole "
+        f"(rows rasterized less the skybox = the cut mask's count, "
+        f"recomputed; reported size = the step's largest)")
+    return sizes
+
+
+def locked_rows_kept(rec):
+    """Anchors and skybox rows bit-equal to their values before the run.
+    Returns (rows that changed, locked rows)."""
+    state, locked = rec["state"], rec["locked"]
+    moved = torch.zeros_like(locked)
+    for k, v0 in rec["state0"].items():
+        v1 = state.trainable_dict()[k]
+        assert torch.equal(v0[locked], v1[locked]), f"locked rows of {k} moved"
+        moved |= (v0 != v1).reshape(v0.shape[0], -1).any(dim=1)
+    n_locked, n_moved = int(locked.sum()), int(moved.sum())
+    log(f"locked rows ({n_locked}: {rec['n_anchor']} anchors, "
+        f"{state.n_skybox} skybox) bit-equal to their initial values; "
+        f"{n_moved} of the other {state.capacity - n_locked} rows changed")
+    return n_moved, n_locked
+
+
+def dp_post_phase(tmp: str, hier: str, base, n_nodes: int,
+                  one_view_ms: float):
+    """``train_post --views_per_step 4`` over the hierarchy (a link to it
+    and its exposures in a directory of its own, so its ``<hier>_opt``
+    leaves the one-view run's alone): DP_POST_ITERS iterations, counted;
+    every view's cut whole, anchors and skybox rows bit-equal, K1 and K2
+    once per view; views/s against the one-view post run's."""
+    from h3dgs_tpu_torch.hierarchy.io import read_hier
+
+    dp_dir = os.path.join(tmp, "post_dp_hier")
+    os.makedirs(dp_dir)
+    dp_hier = os.path.join(dp_dir, "hierarchy.hier")
+    os.symlink(hier, dp_hier)
+    os.symlink(os.path.join(os.path.dirname(hier), "exposure.json"),
+               os.path.join(dp_dir, "exposure.json"))
+    argv = [a if a != hier else dp_hier for a in base]
+    t0 = time.perf_counter()
+    rec, counts = counted(run_post_cli, argv + [
+        "-m", os.path.join(tmp, "post_dp"), "--iterations",
+        str(DP_POST_ITERS), "--views_per_step", str(DP_VIEWS)])
+    wall = time.perf_counter() - t0
+    n_views = DP_POST_ITERS * DP_VIEWS
+    photo = rec["photo"]
+    assert len(photo) == DP_POST_ITERS and all(math.isfinite(x)
+                                               for x in photo), photo
+    log(f"train_post --views_per_step {DP_VIEWS} ({DP_POST_ITERS} "
+        f"iterations, {n_views} views, {wall:.1f} s wall incl. scene and "
+        f"hierarchy load): photo loss first {photo[0]:.5f}, last "
+        f"{photo[-1]:.5f}; kernel launches {counts}")
+    assert counts == {"blend_fwd": n_views, "blend_bwd": n_views,
+                      "ssim": 0}, counts
+    sizes = check_cuts(rec, n_nodes)
+    assert len(sizes) == n_views, len(sizes)
+    locked_rows_kept(rec)
+    steady, _ = steady_ms(rec)
+    med = float(np.median(steady))
+    log(f"{DP_VIEWS}-view post step time (CUDA events between step ends, "
+        f"iterations 6-{DP_POST_ITERS}): median {med:.3f} ms, min "
+        f"{np.min(steady):.3f}, max {np.max(steady):.3f}; "
+        f"{DP_VIEWS * 1e3 / med:.2f} views/s against {1e3 / one_view_ms:.2f}"
+        f" views/s one view a step ({DP_VIEWS * one_view_ms / med:.3f}x)")
+    h1 = read_hier(dp_hier + "_opt")
+    h1.validate()
+    assert h1.n_nodes == n_nodes and np.isfinite(h1.shs).all()
+    log(f"{os.path.basename(dp_hier)}_opt of the {DP_VIEWS}-view run: "
+        f"{h1.n_nodes} nodes read back and validated")
+    del rec
+    return counts
+
+
+def hierarchies_agree(a, b) -> str:
+    """Two builds of one point cloud by the C++ and numpy backends. Both
+    order the leaves by Morton code, which the C++ code quantises in
+    double and numpy in float32, so a leaf whose position lies within
+    rounding of a cell boundary can take another place (and its
+    ancestors other attributes). Held: the same tree structure, the same
+    leaves as a multiset (position, opacity, SH), the root within 1e-5 of
+    its largest value, and at most 1 % of the rows differing beyond 1e-4
+    (a CPU build of 200,000 points of this surface: 626 of 399,999).
+    Returns a description."""
+    assert np.array_equal(a.nodes, b.nodes), "tree structure differs"
+    leaf = a.nodes[:, 2] == 0
+
+    def rows(h):
+        return np.concatenate([h.xyz, h.alpha[:, None],
+                               h.shs.reshape(h.n_nodes, -1)], axis=1)
+
+    ra, rb = rows(a), rows(b)
+    la, lb = ra[leaf], rb[leaf]
+    la = la[np.lexsort(la[:, ::-1].T)]
+    lb = lb[np.lexsort(lb[:, ::-1].T)]
+    assert np.array_equal(la, lb), "the leaves differ as a set"
+    root = a.nodes[:, 0] < 0
+    d_root = float(np.abs(ra[root] - rb[root]).max())
+    assert d_root <= 1e-5 * max(1.0, float(np.abs(rb[root]).max())), d_root
+    differ = ~np.all(np.abs(ra - rb) <= 1e-4 * np.maximum(1.0, np.abs(rb)),
+                     axis=1)
+    assert differ.mean() <= 0.01, differ.mean()
+    return (f"structure equal, leaves equal as a set, root within "
+            f"{d_root:.2e}, {int(differ.sum())} of {a.n_nodes} rows "
+            f"({int(differ[leaf].sum())} leaves) placed or merged "
+            f"differently, anchors {a.anchors.size} / {b.anchors.size}")
 
 
 def synthetic_lpips_weights(path: str, seed: int = 0) -> dict:
@@ -1683,17 +2138,7 @@ def merge_check(hier_opt: str, tmp: str) -> str:
         meta_io.write_vec(os.path.join(chunks, name, "extent.txt"), extent)
         c, e = np.float32(center), np.float32(extent)
         bounds[name] = (c - e / 2, c + e / 2)
-    merged_dir = os.path.join(tmp, "merged")
-    merged_path = os.path.join(merged_dir, "merged.hier")
-    t0 = time.perf_counter()
-    hierarchy_merger.main([trained, "0", chunks, merged_path,
-                           *sorted(bounds)])
-    seconds = time.perf_counter() - t0
-
     h = read_hier(hier_opt)
-    m = read_hier(merged_path)
-    m.validate()
-    assert m.root == 0 and m.nodes[0, N_CHILDREN] == 2, m.nodes[0]
 
     def inside(xyz, lo, hi):
         return ((xyz[:, 0] >= lo[0]) & (xyz[:, 0] <= hi[0])
@@ -1702,18 +2147,38 @@ def merge_check(hier_opt: str, tmp: str) -> str:
     leaf = h.nodes[:, N_CHILDREN] == 0
     want = sum(int((leaf & inside(h.xyz, lo, hi)).sum())
                for lo, hi in bounds.values())
-    assert m.n_leaves == want, (m.n_leaves, want)
-    m_leaf = m.nodes[:, N_CHILDREN] == 0
-    union = np.zeros(m.n_nodes, bool)
-    for lo, hi in bounds.values():
-        union |= inside(m.xyz, lo, hi)
-    assert union[m_leaf].all(), "a merged leaf lies outside both boxes"
-    log(f"hierarchy_merger: 2 chunks of {h.n_nodes} nodes ({h.n_leaves} "
-        f"leaves each) -> {m.n_nodes} nodes, {m.n_leaves} leaves (= the "
-        f"leaves inside the two half boxes, counted with numpy), "
-        f"{m.anchors.size} anchors, validated, in {seconds:.1f} s on the "
-        f"host (read, prune, merge, write)")
-    return merged_path
+    merged = {}
+    for backend in ("native", "numpy"):
+        path = os.path.join(tmp, f"merged_{backend}", "merged.hier")
+        t0 = time.perf_counter()
+        hierarchy_merger.main([trained, "0", chunks, path, *sorted(bounds),
+                               "--backend", backend])
+        seconds = time.perf_counter() - t0
+        m = read_hier(path)
+        m.validate()
+        assert m.root == 0 and m.nodes[0, N_CHILDREN] == 2, m.nodes[0]
+        assert m.n_leaves == want, (backend, m.n_leaves, want)
+        m_leaf = m.nodes[:, N_CHILDREN] == 0
+        union = np.zeros(m.n_nodes, bool)
+        for lo, hi in bounds.values():
+            union |= inside(m.xyz, lo, hi)
+        assert union[m_leaf].all(), "a merged leaf lies outside both boxes"
+        log(f"hierarchy_merger --backend {backend}: 2 chunks of {h.n_nodes} "
+            f"nodes ({h.n_leaves} leaves each) -> {m.n_nodes} nodes, "
+            f"{m.n_leaves} leaves (= the leaves inside the two half boxes, "
+            f"counted with numpy), {m.anchors.size} anchors, validated, in "
+            f"{seconds:.1f} s on the host (read, prune, merge, write)")
+        merged[backend] = (path, m)
+    a, b = merged["native"][1], merged["numpy"][1]
+    same = a.n_nodes == b.n_nodes and np.array_equal(a.nodes, b.nodes)
+    detail = ""
+    if same:
+        d = max(float(np.abs(getattr(a, k) - getattr(b, k)).max())
+                for k in ("xyz", "alpha", "shs", "boxes"))
+        detail = f", largest attribute |d| {d:.2e}"
+    log(f"merged trees of the two backends: structure "
+        f"{'equal' if same else 'different'}{detail}")
+    return merged["native"][0]
 
 
 def eval_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
@@ -2002,7 +2467,10 @@ def main() -> int:
               f"max tile depth {depth:.0f}")
     args, height, width = inputs
     k1_row = check_blend(args, height, width, 0)
-    del renderer, inputs, args
+    del inputs, args
+    band_counts = bands_phase(renderer, cams)
+    web_counts = web_phase(renderer, look_at_camera)
+    del renderer
     torch.cuda.empty_cache()
 
     # --- the training paths, counted ---
@@ -2011,19 +2479,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         orchestrate_phase(tmp, rng, look_at_camera)
-    steps = (TRAIN_ITERS + FUSED_ITERS + POST_ITERS + POST_RESUMED
-             + POST_FUSED_ITERS)
-    fused_steps = FUSED_ITERS + POST_FUSED_ITERS
+    dp_views = DP_VIEWS * (DP_ITERS + DP_FUSED_ITERS + DP_POST_ITERS)
+    views = (TRAIN_ITERS + FUSED_ITERS + POST_ITERS + POST_RESUMED
+             + POST_FUSED_ITERS + dp_views)
+    fused_views = FUSED_ITERS + POST_FUSED_ITERS + DP_VIEWS * DP_FUSED_ITERS
     eval_frames = TRAIN_VIEWS * len(EVAL_TAUS)
-    total = {k: launches[k] + sum(c[k] for c in train_counts.values())
-             for k in launches}
-    log(f"kernel launches over the {1 + len(train_counts)} paths: {total} "
-        f"({frames} frames, {steps} training steps, {fused_steps} of them "
-        f"with the fused loss, {eval_frames} evaluation frames, 1 render "
-        f"call)")
-    assert total["blend_fwd"] >= frames + steps + eval_frames + 1, total
-    assert total["blend_bwd"] >= steps, total
-    assert total["ssim"] >= fused_steps, total
+    paths = {"serve": launches, **band_counts, **web_counts, **train_counts}
+    total = {k: sum(c[k] for c in paths.values()) for k in launches}
+    n_bands = sum(BAND_COUNTS)
+    log(f"kernel launches over the {len(paths)} paths: {total} ({frames} "
+        f"frames, {n_bands} bands, {N_WEB} web frames, {views} training "
+        f"views ({dp_views} of them {DP_VIEWS} a step, {fused_views} with "
+        f"the fused loss), {eval_frames} evaluation frames, 1 render call)")
+    assert total["blend_fwd"] >= (frames + n_bands + N_WEB + views
+                                  + eval_frames + 1), total
+    assert total["blend_bwd"] >= views, total
+    assert total["ssim"] >= fused_views, total
     for name, n in total.items():
         assert n > 0, f"kernel {name} was not launched on the main paths"
 

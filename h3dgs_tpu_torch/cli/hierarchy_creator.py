@@ -2,19 +2,27 @@
 of ``h3dgs_tpu/cli/hierarchy_creator.py``).
 
   python -m h3dgs_tpu_torch.cli.hierarchy_creator \
-      <point_cloud.ply> <chunk dir> <output dir> [<scaffold dir>]
+      <point_cloud.ply> <chunk dir> <output dir> [<scaffold dir>] \
+      [--backend auto|numpy|native]
 
 Writes <output dir>/hierarchy.hier + anchors.bin. Skybox rows (pc_info.txt
 next to the ply) are excluded: the post stage re-appends the scaffold's
 skybox. Leaves outside the chunk bounds (center.txt / extent.txt) are
 marked as anchors: they are scaffold-ring / boundary Gaussians that must
-stay fixed during post-optimization. The tree is built on the host with
-numpy (``hierarchy/tree.py``); this tool uses no device.
+stay fixed during post-optimization. The tree is built on the host
+(``hierarchy/tree.py:build_hierarchy``): ``--backend native`` runs the C++
+builder (``native.py``, compiled from ``native/hierarchy_native.cpp`` at
+first use), ``numpy`` the vectorized one, ``auto`` (the default) the C++
+one when a C++ compiler is found. Both give the same structure, leaf set
+and anchors, not always the same bytes (the C++ builder quantises Morton
+codes in double, numpy in float32); the tool logs which ran. It uses no
+device.
 """
 from __future__ import annotations
 
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -27,9 +35,9 @@ def _position_keys(xyz: np.ndarray) -> np.ndarray:
 
 
 def create_hierarchy(ply_path: str, chunk_dir: str, out_dir: str,
-                     scaffold_dir: str = "") -> str:
+                     scaffold_dir: str = "", backend: str = "auto") -> str:
     from ..hierarchy.io import write_anchors, write_hier
-    from ..hierarchy.tree import build_hierarchy
+    from ..hierarchy.tree import build_hierarchy, resolve_backend
     from ..io.meta import read_pc_info, read_vec
     from ..io.ply import read_gaussian_ply
 
@@ -72,8 +80,12 @@ def create_hierarchy(ply_path: str, chunk_dir: str, out_dir: str,
             print(f"{int(match.sum())} scaffold-position leaves "
                   "marked as anchors")
 
+    backend = resolve_backend(backend)
+    t0 = time.perf_counter()
     h = build_hierarchy(xyz, shs, alpha, scaling, rotation,
-                        locked_leaf_mask=locked)
+                        locked_leaf_mask=locked, backend=backend)
+    print(f"hierarchy built by the {backend} backend in "
+          f"{time.perf_counter() - t0:.2f} s")
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, "hierarchy.hier")
     write_hier(out_path, h)
@@ -84,12 +96,17 @@ def create_hierarchy(ply_path: str, chunk_dir: str, out_dir: str,
 
 
 def main(argv=None):
-    argv = argv if argv is not None else sys.argv[1:]
+    argv = list(argv if argv is not None else sys.argv[1:])
+    backend = "auto"
+    if "--backend" in argv:
+        i = argv.index("--backend")
+        backend = argv[i + 1]
+        del argv[i:i + 2]
     if len(argv) < 3:
         print(__doc__)
         sys.exit(2)
     create_hierarchy(argv[0], argv[1], argv[2],
-                     argv[3] if len(argv) > 3 else "")
+                     argv[3] if len(argv) > 3 else "", backend=backend)
 
 
 if __name__ == "__main__":

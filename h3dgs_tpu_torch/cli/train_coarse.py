@@ -14,6 +14,7 @@ import sys
 
 
 def main(argv=None):
+    from ..parallel import multihost
     from ..scene.scene import Scene
     from ..train.loop import train_flat
     from ..utils.runtime import resolve_device
@@ -24,13 +25,17 @@ def main(argv=None):
     parser = build_parser("Coarse scaffold training (PyTorch/CUDA)")
     add_train_args(parser, viewer=True)
     cfg, args = parse_full_config(parser, argv)
+    # No-op for one process; H3DGS_* variables, torchrun or SLURM start a
+    # group of one process per card.
+    multihost.initialize(device=args.device)
     device = resolve_device(args.device)
     cfg.model.sh_degree = 1  # the scaffold is degree 1
-    dump_cfg_args(cfg)
+    if multihost.is_primary():
+        dump_cfg_args(cfg)
     saves = sorted(set(args.save_iterations + [cfg.opt.iterations]))
 
     scene = Scene(cfg.model, cfg.runtime, device=device)
-    viewer = maybe_viewer(args)
+    viewer = maybe_viewer(args) if multihost.is_primary() else None
     try:
         train_flat(cfg, scene, coarse=True, save_iterations=saves,
                    checkpoint_iterations=args.checkpoint_iterations,
@@ -38,7 +43,8 @@ def main(argv=None):
     finally:
         if viewer is not None:
             viewer.close()
-    print("Training complete.")
+    if multihost.is_primary():
+        print("Training complete.")
 
 
 if __name__ == "__main__":

@@ -93,9 +93,13 @@ class RuntimeConfig:
     grow_capacity: bool = True
     # Upper bound for capacity growth (0 = unlimited).
     max_capacity: int = 0
-    # In-step view data parallelism over this many devices; only 1 is
-    # ported (train/loop.py raises NotImplementedError otherwise).
+    # In-step view data parallelism: the processes of the
+    # torch.distributed group (one card each) that share each step's views
+    # (parallel/step.make_dp_train_step); 1 = one process.
     data_devices: int = 1
+    # Views per optimizer step in the data-parallel path (a multiple of
+    # data_devices); 0 = one view per device.
+    views_per_step: int = 0
 
 
 @dataclasses.dataclass

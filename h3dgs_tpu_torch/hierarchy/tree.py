@@ -214,17 +214,42 @@ def _three_sigma_box(xyz, scaling_log, rotation):
     return np.stack([xyz - half, xyz + half], axis=1).astype(np.float32)
 
 
+BACKENDS = ("auto", "numpy", "native")
+
+
+def resolve_backend(backend: str) -> str:
+    """``auto`` -> ``native`` when a C++ compiler is found, else
+    ``numpy``; the others name themselves."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown hierarchy backend {backend!r}; "
+                         f"choose from {BACKENDS}")
+    if backend == "auto":
+        from ..native import native_available
+        return "native" if native_available() else "numpy"
+    return backend
+
+
 def build_hierarchy(xyz, shs, alpha, scaling, rotation,
-                    locked_leaf_mask: np.ndarray | None = None) -> Hierarchy:
+                    locked_leaf_mask: np.ndarray | None = None,
+                    backend: str = "auto") -> Hierarchy:
     """Build the full hierarchy over N flat Gaussians.
 
     ``locked_leaf_mask`` [N] marks leaves (scaffold / out-of-chunk rows)
     whose enclosing nodes become anchors — fixed during post-optimization
     (reference anchors.bin contract, upstream train_post.py:176-181).
 
-    This is the vectorized numpy implementation; the JAX package's native
-    C++ implementation computes the same tree and is not carried over.
+    ``backend``: "native" runs the C++ builder (``native.py``, the same
+    algorithm, built from source at first use; a failed build raises),
+    "numpy" this vectorized implementation, "auto" the C++ builder when a
+    C++ compiler is found. The two give the same structure, leaf set and
+    anchors, but not always the same bytes: the C++ builder quantises the
+    Morton codes in double, this one in float32, so a few rows of a large
+    chunk can differ.
     """
+    if resolve_backend(backend) == "native":
+        from ..native import build_hierarchy_native
+        return build_hierarchy_native(xyz, shs, alpha, scaling, rotation,
+                                      locked_leaf_mask)
     xyz = np.asarray(xyz, np.float32)
     n = xyz.shape[0]
     if n == 0:

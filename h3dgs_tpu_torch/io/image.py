@@ -75,10 +75,14 @@ def _unfilter(data: np.ndarray, height: int, width: int,
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode a PNG file: [H, W] or [H, W, C] uint8 / uint16 (C = 2, 3 or
-    4: gray+alpha, RGB, RGBA)."""
+    """Decode a PNG file (``decode_png``)."""
     with open(path, "rb") as f:
-        raw = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(raw: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Decode PNG bytes: [H, W] or [H, W, C] uint8 / uint16 (C = 2, 3 or
+    4: gray+alpha, RGB, RGBA). ``path`` names the source in errors."""
     if raw[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos = 8
@@ -120,8 +124,8 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xffffffff))
 
 
-def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Encode [H, W] or [H, W, C] (C = 1..4) uint8 or uint16 as PNG
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """PNG bytes of [H, W] or [H, W, C] (C = 1..4) uint8 or uint16 samples
     (filter type None on every row)."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
@@ -134,13 +138,20 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
     px = img.astype(">u2") if depth == 16 else img
     rows = np.ascontiguousarray(px).view(np.uint8).reshape(height, -1)
     data = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
+    return b"".join((
+        PNG_SIGNATURE,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth,
+                                    ctype, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(data.tobytes(), level)),
+        _chunk(b"IEND", b"")))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Write ``encode_png(img, level)`` to ``path``."""
+    body = encode_png(img, level)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height,
-                                            depth, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(data.tobytes(), level)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(body)
 
 
 def _format(head: bytes) -> str:

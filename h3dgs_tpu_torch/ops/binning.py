@@ -80,13 +80,23 @@ def _tight_rects(proj: ProjectedGaussians, tiles_y: int, tiles_x: int,
 
 
 def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
-                  tile: int = TILE) -> BinnedGaussians:
+                  tile: int = TILE, first_tile_row: int = 0
+                  ) -> BinnedGaussians:
+    """``first_tile_row`` > 0 leaves the tile rows above it empty: a pixel
+    band's binning (``parallel/band_render.py``) keeps the full frame's
+    tile grid, and every entry of its tiles, in the full frame's order."""
     tiles_y, tiles_x = num_tiles(height, width, tile)
     n_tiles = tiles_y * tiles_x
     dev = proj.means2d.device
 
     rect_min_x, rect_min_y, span_x, span_y, counts = _tight_rects(
         proj, tiles_y, tiles_x, tile)
+    if first_tile_row > 0:
+        rect_max_y = rect_min_y + span_y
+        rect_min_y = torch.clamp_min(rect_min_y, first_tile_row)
+        span_y = torch.clamp_min(rect_max_y - rect_min_y, 0)
+        counts = torch.where(counts > 0, span_x * span_y,
+                             torch.zeros_like(counts))
     counts64 = counts.long()
     n = counts64.shape[0]
 

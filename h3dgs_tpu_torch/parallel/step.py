@@ -1,0 +1,195 @@
+"""Data-parallel training steps: several views a step, on one card or
+across the processes of a ``torch.distributed`` group (counterpart of
+``h3dgs_tpu/parallel/step.py``).
+
+``make_dp_train_step`` (flat training) and ``make_dp_post_step``
+(hierarchy post-training) run the port's single-view render and loss over
+this process's local views one after another (K1 forward, K3 when the
+fused loss is on, K2 backward), sum the gradients, divide them by the
+*global* view count and all-reduce them (SUM) over the group when there
+is one; ``radii`` and ``visible`` reduce by MAX. The update then runs
+once a step (``make_update`` / ``make_post_update`` of
+``train/step.py`` / ``train/post_step.py``): locking, densification stats
+from the batch-mean screen-space gradient, sparse Adam on the rows with a
+nonzero opacity gradient in any view (H8), exposure Adam, shrink; the
+post step's dense Adam with anchors and sky locked. These are the port's
+only train steps: the single-view ``make_train_step`` and
+``make_post_train_step`` pass their one view through them, and with one
+view and no group nothing is divided or reduced.
+
+The JAX package also has ``make_parallel_train_step``, a vmapped SPMD
+step over a batched renderer that computes the same update as its
+``make_dp_train_step``. The port has one dp step, held against both JAX
+builders in its tests.
+
+Memory: the gradient accumulator is one extra copy of the parameters'
+gradients (59 floats a row).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..config import OptimizationConfig
+from ..model.state import GaussianState
+from ..ops import adam as adam_lib
+from ..ops.rasterize import RasterizeConfig
+from ..train.post_step import (PostStepOutput, make_post_update,
+                               make_post_view_grads)
+from ..train.step import (StepOutput, ViewBatch, make_update,
+                          make_view_grads)
+
+
+def _group_size(group) -> int:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(group)
+    return 1
+
+
+def _all_reduce(tensors: Sequence[torch.Tensor], op, group) -> None:
+    for t in tensors:
+        dist.all_reduce(t, op=op, group=group)
+
+
+def _accumulate(acc: Optional[dict], grads: dict) -> dict:
+    """Sum ``grads`` into ``acc`` in place (the first view's gradients
+    become the accumulator, so one view needs no addition)."""
+    if acc is None:
+        return dict(grads)
+    for k, g in grads.items():
+        acc[k].add_(g)
+    return acc
+
+
+def make_dp_train_step(opt_cfg: OptimizationConfig,
+                       raster_cfg: RasterizeConfig,
+                       use_depth_loss: bool = True,
+                       use_exposure: bool = True,
+                       skybox_locked: bool = True,
+                       freeze_xyz: bool = False,
+                       shrink_threshold: float = 0.02,
+                       shrink_protect_scaffold: bool = True,
+                       skip_shrink: bool = False, group=None):
+    """Build the dp flat step. ``step(..., batch, ...)`` takes this
+    process's views as a list of ``ViewBatch``; every process of ``group``
+    (the default group when ``torch.distributed`` is initialised) must
+    pass as many."""
+    view_grads = make_view_grads(opt_cfg, raster_cfg, use_depth_loss,
+                                 use_exposure)
+    update = make_update(opt_cfg, use_exposure, skybox_locked, freeze_xyz,
+                         shrink_threshold, shrink_protect_scaffold,
+                         skip_shrink)
+
+    def step(state: GaussianState, opt: adam_lib.AdamState,
+             exposure: torch.Tensor, exposure_opt: adam_lib.AdamState,
+             batch: List[ViewBatch], iteration, bg: torch.Tensor,
+             spatial_lr_scale, cameras_extent,
+             sh_degree: int) -> StepOutput:
+        n_proc = _group_size(group)
+        n_total = len(batch) * n_proc
+        acc = g_exp = radii = visible = None
+        photo = depth = n_dup = None
+        for view in batch:
+            g = view_grads(state, exposure, view, iteration, bg, sh_degree)
+            with torch.no_grad():
+                grads = dict(g.g_params, _offset=g.g_offset)
+                acc = _accumulate(acc, grads)
+                if use_exposure:
+                    if g_exp is None:
+                        g_exp = torch.zeros_like(exposure)
+                    g_exp[view.image_idx] += g.g_exposure
+                if radii is None:
+                    radii, visible = g.radii, g.visible
+                    photo, depth = g.photo_loss, g.depth_loss
+                    n_dup = g.n_duplicates
+                else:
+                    radii = torch.maximum(radii, g.radii)
+                    visible = visible | g.visible
+                    photo, depth = photo + g.photo_loss, depth + g.depth_loss
+                    n_dup = torch.maximum(n_dup, g.n_duplicates)
+            del g, grads
+        with torch.no_grad():
+            if n_total > 1:
+                for v in acc.values():
+                    v.div_(n_total)
+                if g_exp is not None:
+                    g_exp.div_(n_total)
+            if n_proc > 1:
+                floats = list(acc.values())
+                if g_exp is not None:
+                    floats.append(g_exp)
+                losses = torch.stack([photo, depth])
+                _all_reduce(floats + [losses], dist.ReduceOp.SUM, group)
+                vis = visible.to(torch.int32)
+                n_dup = n_dup.to(torch.int32).reshape(1)
+                _all_reduce([radii, vis, n_dup], dist.ReduceOp.MAX, group)
+                visible, n_dup = vis > 0, n_dup[0]
+                photo, depth = losses[0], losses[1]
+            g_offset = acc.pop("_offset")
+        new_state, new_opt, exposure, exposure_opt = update(
+            state, opt, exposure, exposure_opt, acc, g_exp, g_offset, radii,
+            visible, iteration, spatial_lr_scale, cameras_extent)
+        return StepOutput(
+            state=new_state, opt=new_opt, exposure=exposure,
+            exposure_opt=exposure_opt, photo_loss=photo / n_total,
+            depth_loss=depth / n_total, n_visible=visible.sum(),
+            n_duplicates=n_dup)
+
+    return step
+
+
+def make_dp_post_step(opt_cfg: OptimizationConfig,
+                      raster_cfg: RasterizeConfig,
+                      skybox_locked: bool = True,
+                      use_exposure: bool = True, group=None):
+    """Build the dp post step. ``step(..., batch, ..., exposure_rows,
+    limits, ...)`` takes this process's views as a list of ``ViewBatch``
+    with one pretrained exposure row ``[3, 4]`` and one granularity limit
+    each; each view's cut is sized exactly (H11). ``cut_size`` is the
+    largest cut over the views of every process, ``n_visible`` the largest
+    count of visible rendered rows."""
+    view_grads = make_post_view_grads(opt_cfg, raster_cfg, use_exposure)
+    update = make_post_update(opt_cfg, skybox_locked)
+
+    def step(state: GaussianState, opt: adam_lib.AdamState,
+             batch: List[ViewBatch], nodes: torch.Tensor,
+             boxes: torch.Tensor, anchor_mask: torch.Tensor,
+             exposure_rows, limits, iteration, bg: torch.Tensor,
+             spatial_lr_scale, sh_degree: int) -> PostStepOutput:
+        n_proc = _group_size(group)
+        n_total = len(batch) * n_proc
+        acc = photo = cut_max = vis_max = None
+        for view, exp_row, limit in zip(batch, exposure_rows, limits):
+            g = view_grads(state, view, nodes, boxes, exp_row, limit, bg,
+                           sh_degree)
+            with torch.no_grad():
+                acc = _accumulate(acc, g.g_params)
+                if photo is None:
+                    photo, cut_max, vis_max = (g.photo_loss, g.cut_size,
+                                               g.n_visible)
+                else:
+                    photo = photo + g.photo_loss
+                    cut_max = torch.maximum(cut_max, g.cut_size)
+                    vis_max = torch.maximum(vis_max, g.n_visible)
+            del g
+        with torch.no_grad():
+            if n_total > 1:
+                for v in acc.values():
+                    v.div_(n_total)
+            if n_proc > 1:
+                photo = photo.reshape(1).clone()
+                _all_reduce(list(acc.values()) + [photo],
+                            dist.ReduceOp.SUM, group)
+                counts = torch.stack([cut_max.to(torch.int64),
+                                      vis_max.to(torch.int64)])
+                _all_reduce([counts], dist.ReduceOp.MAX, group)
+                photo, cut_max, vis_max = photo[0], counts[0], counts[1]
+        new_state, new_opt = update(state, opt, acc, anchor_mask, iteration,
+                                    spatial_lr_scale)
+        return PostStepOutput(
+            state=new_state, opt=new_opt, photo_loss=photo / n_total,
+            cut_size=cut_max, n_visible=vis_max)
+
+    return step

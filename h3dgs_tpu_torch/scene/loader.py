@@ -136,13 +136,13 @@ class ViewStream:
     """Endless shuffled prefetching iterator over training views.
 
     Epochs are re-shuffled with a seeded numpy generator; ``prefetch``
-    decode jobs run ahead on a thread pool. (The JAX stream's ``keep_fn``
-    serves multi-host loading, which is not ported.)
+    decode jobs run ahead on a thread pool.
     """
 
     def __init__(self, infos: Sequence[CameraInfo], resolution: int = -1,
                  train_test_exp: bool = False, num_workers: int = 8,
-                 prefetch: int = 8, seed: int = 0, shuffle: bool = True):
+                 prefetch: int = 8, seed: int = 0, shuffle: bool = True,
+                 keep_fn=None):
         self.infos = list(infos)
         self.resolution = resolution
         self.train_test_exp = train_test_exp
@@ -150,20 +150,30 @@ class ViewStream:
         self.shuffle = shuffle
         self.pool = cf.ThreadPoolExecutor(max_workers=num_workers)
         self.prefetch = prefetch
+        # keep_fn(position) -> bool over the GLOBAL consumption sequence:
+        # with a shared seed every process walks the same shuffled
+        # sequence and loads only its own positions (multi-process data
+        # parallelism; skipped views are never decoded).
+        self.keep_fn = keep_fn
         self._queue: List[cf.Future] = []
         self._perm: List[int] = []
         self._pos = 0
+        self._gpos = 0
 
     def _next_index(self) -> int:
-        if self._pos >= len(self._perm):
-            idx = np.arange(len(self.infos))
-            if self.shuffle:
-                self.rng.shuffle(idx)
-            self._perm = list(idx)
-            self._pos = 0
-        i = self._perm[self._pos]
-        self._pos += 1
-        return int(i)
+        while True:
+            if self._pos >= len(self._perm):
+                idx = np.arange(len(self.infos))
+                if self.shuffle:
+                    self.rng.shuffle(idx)
+                self._perm = list(idx)
+                self._pos = 0
+            i = self._perm[self._pos]
+            self._pos += 1
+            pos = self._gpos
+            self._gpos += 1
+            if self.keep_fn is None or self.keep_fn(pos):
+                return int(i)
 
     def _submit(self):
         i = self._next_index()

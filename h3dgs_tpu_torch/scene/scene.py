@@ -9,8 +9,8 @@ artifacts (``point_cloud/iteration_N/point_cloud.ply`` + ``pc_info.txt``,
 reference's formats. ``create_from_hier`` builds the post-training state
 from ``model_cfg.hierarchy`` (hierarchy rows, then the scaffold's skybox
 rows) with its anchor mask and the pretrained exposures found beside the
-hierarchy. Not ported yet: the packed ``.pt`` format for scenes past 8M
-points (raises ``NotImplementedError``).
+hierarchy. A scene past ``PLY_MAX_POINTS`` is saved, and loaded, in the
+packed ``.pt`` format (``io/pt.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import numpy as np
 
 from ..config import ModelConfig, RuntimeConfig
 from ..io import meta as meta_io
+from ..io import pt as pt_io
 from ..io.ply import read_gaussian_ply, write_gaussian_ply
 from ..model import state as state_lib
 from ..hierarchy.io import read_hier, write_hier
@@ -125,7 +126,8 @@ class Scene:
             json.dump(json_cams, f)
 
     def _load_point_cloud_dir(self, pc_dir: str) -> state_lib.GaussianState:
-        """Load point_cloud.ply (or point_cloud.npz)."""
+        """Load point_cloud.ply, the packed >8M-point format or
+        point_cloud.npz."""
         n_skybox = 0
         info = os.path.join(pc_dir, "pc_info.txt")
         if os.path.exists(info):
@@ -134,9 +136,7 @@ class Scene:
         if os.path.exists(ply):
             g = read_gaussian_ply(ply, self.cfg.sh_degree)
         elif os.path.exists(os.path.join(pc_dir, "done_xyz.pt")):
-            raise NotImplementedError(
-                "the packed .pt format (scenes past 8M points) is not "
-                "ported yet")
+            g = pt_io.load_pt(pc_dir)
         else:
             g = dict(np.load(os.path.join(pc_dir, "point_cloud.npz")))
         capacity = self.runtime.capacity or None
@@ -149,12 +149,12 @@ class Scene:
             n_skybox=n_skybox)
 
     def train_stream(self, seed: int = 0, num_workers: int = 8,
-                     shuffle: bool = True) -> ViewStream:
+                     shuffle: bool = True, keep_fn=None) -> ViewStream:
         return ViewStream(self.info.train_cameras,
                           resolution=self.cfg.resolution,
                           train_test_exp=self.cfg.train_test_exp,
                           num_workers=num_workers, seed=seed,
-                          shuffle=shuffle)
+                          shuffle=shuffle, keep_fn=keep_fn)
 
     def save(self, iteration: int, state: state_lib.GaussianState,
              exposures: Optional[np.ndarray] = None,
@@ -190,10 +190,11 @@ class Scene:
         arrs = {k: v[keep] for k, v in arrs.items()}
         n = arrs["xyz"].shape[0]
         if n > PLY_MAX_POINTS:
-            raise NotImplementedError(
-                f"{n} points: the packed .pt format for scenes past "
-                f"{PLY_MAX_POINTS} points is not ported yet")
-        write_gaussian_ply(os.path.join(pc_dir, "point_cloud.ply"), **arrs)
+            # The reference's raw-tensor format for huge scenes.
+            pt_io.save_pt(pc_dir, **arrs)
+        else:
+            write_gaussian_ply(os.path.join(pc_dir, "point_cloud.ply"),
+                               **arrs)
         if exposures is not None:
             exp = {name: exposures[i]
                    for i, name in enumerate(self.image_names)}

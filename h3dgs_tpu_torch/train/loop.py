@@ -1,17 +1,21 @@
 """Host-side training loops (counterpart of ``h3dgs_tpu/train/loop.py``:
 ``train_flat`` and ``train_post``).
 
-``train_flat`` drives the train step (``train/step.py``) around a
+``train_flat`` drives the flat train step (``train/step.py``) around a
 streaming view loader, with densification and opacity reset on their
 intervals, capacity growth when a densify pass runs out of slots, SH
 warm-up, the 50-iteration log line, artifact saving and checkpoints.
 ``train_post`` fine-tunes a hierarchy (``train/post_step.py``): a sampled
-granularity per step, the pretrained exposure of the step's view,
-``<hier>_opt`` on save. Single process, one device. The JAX loops'
-adaptive entry, backward-truncation and cut-capacity budgets are not
-carried over: they size the TPU's static buffers, and the port allocates
-exact entry counts and exact cuts. View data parallelism is a later
-slice.
+granularity per view, the pretrained exposure of the view, ``<hier>_opt``
+on save. Both run the dp steps of ``parallel/step.py``, one view a step
+unless ``runtime.views_per_step`` > 1, and share the views over the
+processes of a ``torch.distributed`` group, one card each
+(``runtime.data_devices`` > 1, ``parallel/multihost.py``): each process
+loads only its own views of each step's window of the shared view
+sequence, and only the primary process logs and writes artifacts.
+The JAX loops' adaptive entry, backward-truncation and cut-capacity
+budgets are not carried over: they size the TPU's static buffers, and the
+port allocates exact entry counts and exact cuts.
 """
 from __future__ import annotations
 
@@ -27,11 +31,13 @@ from ..config import FullConfig
 from ..model import state as state_lib
 from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig
+from ..parallel import multihost as mh
 from ..scene.scene import Scene
+from ..parallel import step as dp_lib
 from . import checkpoint as ckpt_lib
-from .post_step import make_post_train_step, sample_limit
+from .post_step import sample_limit
 from .step import (batch_to_device, densify_step, encode_view,
-                   make_train_step, reset_opacity_step)
+                   reset_opacity_step)
 
 
 def raster_config(cfg: FullConfig) -> RasterizeConfig:
@@ -48,24 +54,71 @@ def _capacity_bucket(cap: int, n_drop: int, max_cap: int) -> int:
     return need
 
 
-class DevicePrefetcher:
-    """Encode the NEXT view (uint8 / f16) and start its transfer to the
-    device through pinned memory, one view ahead, while the current step
-    computes."""
+class BatchedPrefetcher:
+    """Encode this process's next ``batch_size`` views (uint8 / f16) and
+    start their transfer to the device through pinned memory, one step
+    ahead, while the current step computes. Yields (host views, device
+    views) as lists."""
 
-    def __init__(self, stream, device):
+    def __init__(self, stream, batch_size: int, device):
         self.stream = stream
+        self.batch_size = batch_size
         self.device = device
         self._next = self._launch()
 
     def _launch(self):
-        host = next(self.stream)
-        return host, batch_to_device(encode_view(host), self.device)
+        hosts = [next(self.stream) for _ in range(self.batch_size)]
+        return hosts, [batch_to_device(encode_view(h), self.device)
+                       for h in hosts]
 
     def __next__(self):
-        host, dev = self._next
+        hosts, dev = self._next
         self._next = self._launch()
-        return host, dev
+        return hosts, dev
+
+
+@dataclasses.dataclass
+class DpSetup:
+    """The data-parallel wiring shared by ``train_flat`` and
+    ``train_post`` (counterpart of the JAX loop's ``_DpSetup``).
+
+    One view a step is the default (``local_views`` = 1); ``data_devices``
+    = 1 with ``views_per_step`` > 1 accumulates several views a step on
+    one card. With a process group, each process is one of the
+    ``data_devices``: it loads only its own ``local_views`` of each
+    ``views_per_step`` window of the shared-seed view sequence
+    (``keep_fn``), and artifact writes happen on the primary only.
+    """
+    primary: bool
+    process_index: int
+    views_per_step: int
+    local_views: int
+    keep_fn: object
+
+
+def dp_setup(cfg: FullConfig) -> DpSetup:
+    n_data = max(cfg.runtime.data_devices, 1)
+    views_per_step = cfg.runtime.views_per_step or n_data
+    if views_per_step % n_data:
+        raise ValueError(f"views_per_step ({views_per_step}) must be a "
+                         f"multiple of data_devices ({n_data})")
+    n_proc, pidx = mh.process_count(), mh.process_index()
+    if views_per_step % n_proc:
+        raise ValueError(f"views_per_step ({views_per_step}) must be a "
+                         f"multiple of process_count ({n_proc})")
+    if n_data != n_proc:
+        raise ValueError(
+            f"data_devices={n_data} must equal the size of the process "
+            f"group ({n_proc}): one process per card (start them with the "
+            f"H3DGS_* variables or torchrun)")
+    local_views = views_per_step // n_proc
+    keep_fn = None
+    if n_proc > 1:
+        keep_fn = (lambda pos, _v=views_per_step, _l=local_views,
+                   _p=pidx: (pos % _v) // _l == _p)
+    return DpSetup(primary=mh.is_primary(),
+                   process_index=pidx, views_per_step=views_per_step,
+                   local_views=local_views, keep_fn=keep_fn)
 
 
 @dataclasses.dataclass
@@ -107,19 +160,19 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
     view stream's position nor the ``torch.Generator``'s state: a resumed
     run walks the views from the start of their order and redraws its
     densification noise and coarse backgrounds.
+    With several views a step (``DpSetup``), the StepOutput's losses are
+    the means over the step's views.
     Returns the final (state, exposure) on the scene's device.
     """
-    if cfg.runtime.data_devices > 1:
-        raise NotImplementedError(
-            "view data parallelism (data_devices > 1) is not ported yet")
     opt_cfg = cfg.opt
     r_cfg = raster_config(cfg)
     max_sh = 1 if coarse else cfg.model.sh_degree
     save_iterations = save_iterations or [opt_cfg.iterations]
     device = scene.device
+    dp = dp_setup(cfg)
+    primary = dp.primary
 
-    step = make_train_step(
-        opt_cfg, r_cfg,
+    step_kwargs = dict(
         use_depth_loss=not coarse,
         use_exposure=not coarse,
         skybox_locked=cfg.model.skybox_locked or coarse,
@@ -127,6 +180,7 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
         shrink_threshold=0.1 if coarse else 0.02,
         shrink_protect_scaffold=True,
         skip_shrink=cfg.model.skip_scale_big_gauss)
+    step = dp_lib.make_dp_train_step(opt_cfg, r_cfg, **step_kwargs)
 
     state = scene.state
     opt = adam_lib.init(state.trainable_dict())
@@ -141,8 +195,8 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
     bg = (torch.ones(3, device=device) if cfg.model.white_background
           else torch.zeros(3, device=device))
     extent = float(scene.cameras_extent)
-    stream = scene.train_stream(num_workers=8)
-    prefetch = DevicePrefetcher(stream, device)
+    stream = scene.train_stream(num_workers=8, keep_fn=dp.keep_fn)
+    prefetch = BatchedPrefetcher(stream, dp.local_views, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     log = TrainLog(t_start=time.time())
@@ -172,9 +226,10 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
                         state, opt, gen, opt_cfg.densify_grad_threshold,
                         0.005, extent, opt_cfg.percent_dense)
                     n_clone, n_split, n_prune, n_drop = map(int, stats)
-                    print(f"[{it}] densify: cloned {n_clone}, split "
-                          f"{n_split}, pruned {n_prune}, dropped {n_drop}",
-                          flush=True)
+                    if primary:
+                        print(f"[{it}] densify: cloned {n_clone}, split "
+                              f"{n_split}, pruned {n_prune}, dropped "
+                              f"{n_drop}", flush=True)
                     if n_drop > 0:
                         cap = state.capacity
                         want = _capacity_bucket(
@@ -184,9 +239,11 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
                                     else 0)
                             state = state_lib.grow_capacity(state, want)
                             opt = adam_lib.grow_rows(opt, want, tail)
-                            print(f"[{it}] DENSIFY-DROP {n_drop}: "
-                                  f"capacity {cap} -> {want}", flush=True)
-                        else:
+                            if primary:
+                                print(f"[{it}] DENSIFY-DROP {n_drop}: "
+                                      f"capacity {cap} -> {want}",
+                                      flush=True)
+                        elif primary:
                             print(f"[{it}] DENSIFY-DROP {n_drop} "
                                   f"(capacity {cap} full; growth "
                                   f"disabled or at max_capacity)",
@@ -200,14 +257,16 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
                 log.sync()
                 n_alive = int(state.n_alive)
                 rate = it / max(time.time() - log.t_start, 1e-9)
-                print(f"[{it}/{opt_cfg.iterations}] "
-                      f"loss={log.ema_photo:.5f} "
-                      f"depth={log.ema_depth:.5f} "
-                      f"alive={n_alive} it/s={rate:.2f}", flush=True)
-            if it in save_iterations:
+                if primary:
+                    print(f"[{it}/{opt_cfg.iterations}] "
+                          f"loss={log.ema_photo:.5f} "
+                          f"depth={log.ema_depth:.5f} "
+                          f"alive={n_alive} it/s={rate:.2f}", flush=True)
+            if it in save_iterations and primary:
                 path = scene.save(it, state, exposure.cpu().numpy())
                 print(f"[{it}] saved -> {path}", flush=True)
-            if checkpoint_iterations and it in checkpoint_iterations:
+            if checkpoint_iterations and it in checkpoint_iterations \
+                    and primary:
                 ckpt_lib.save_flat(
                     os.path.join(scene.model_path, f"chkpnt{it}.npz"),
                     state, opt, exposure, exp_opt, it)
@@ -241,11 +300,13 @@ def train_post(cfg: FullConfig, scene: Scene,
     truncated and there is no bucket to start or to grow:
     ``initial_max_cut`` has no counterpart.
     ``step_cb(it, out)``: called after every step with its
-    PostStepOutput. Returns the final state on the scene's device.
+    PostStepOutput. With several views a step (``DpSetup``) each view
+    gets its own limit and exposure row: the step draws one limit per
+    view of the whole window from the shared generator, and each process
+    takes its own views' limits, so a run on several processes draws the
+    limits of the same run on one. Returns the final state on the
+    scene's device.
     """
-    if cfg.runtime.data_devices > 1:
-        raise NotImplementedError(
-            "view data parallelism (data_devices > 1) is not ported yet")
     opt_cfg = cfg.opt
     r_cfg = raster_config(cfg)
     h = scene.hierarchy
@@ -256,9 +317,11 @@ def train_post(cfg: FullConfig, scene: Scene,
     max_sh = cfg.model.sh_degree
     device = scene.device
 
-    step = make_post_train_step(
-        opt_cfg, r_cfg, skybox_locked=cfg.model.skybox_locked,
-        use_exposure=scene.pretrained_exposures is not None)
+    dp = dp_setup(cfg)
+    primary = dp.primary
+    step_kwargs = dict(skybox_locked=cfg.model.skybox_locked,
+                       use_exposure=scene.pretrained_exposures is not None)
+    step = dp_lib.make_dp_post_step(opt_cfg, r_cfg, **step_kwargs)
 
     state = scene.state
     opt = adam_lib.init(state.trainable_dict())
@@ -273,39 +336,47 @@ def train_post(cfg: FullConfig, scene: Scene,
     bg = (torch.ones(3, device=device) if cfg.model.white_background
           else torch.zeros(3, device=device))
     spatial_lr = float(scene.cameras_extent)
-    stream = scene.train_stream(seed=first_iter, num_workers=8)
-    prefetch = DevicePrefetcher(stream, device)
+    stream = scene.train_stream(seed=first_iter, num_workers=8,
+                                keep_fn=dp.keep_fn)
+    prefetch = BatchedPrefetcher(stream, dp.local_views, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(first_iter)
     log = TrainLog(t_start=time.time())
     pre_exp = scene.pretrained_exposures or {}
     identity = np.eye(3, 4, dtype=np.float32)
 
+    def exp_for(host_view):
+        name = scene.image_names[int(host_view.image_idx)]
+        return torch.as_tensor(
+            np.asarray(pre_exp.get(name, identity), np.float32),
+            device=device)
+
+    own = slice(dp.process_index * dp.local_views,
+                (dp.process_index + 1) * dp.local_views)
     try:
         for it in range(first_iter + 1, opt_cfg.iterations + 1):
             batch_host, batch = next(prefetch)
-            name = scene.image_names[int(batch_host.image_idx)]
-            exp_row = torch.as_tensor(
-                np.asarray(pre_exp.get(name, identity), np.float32),
-                device=device)
-            limit = sample_limit(gen)
             sh_deg = min(it // 1000, max_sh)
-            out = step(state, opt, batch, nodes, boxes, amask, exp_row,
-                       limit, it, bg, spatial_lr, sh_deg)
+            limits = [sample_limit(gen)
+                      for _ in range(dp.views_per_step)][own]
+            out = step(state, opt, batch, nodes, boxes, amask,
+                       [exp_for(v) for v in batch_host], limits, it, bg,
+                       spatial_lr, sh_deg)
             state, opt = out.state, out.opt
             log.update(out.photo_loss, 0.0)
             if step_cb is not None:
                 step_cb(it, out)
-            if it % 50 == 0 or it == opt_cfg.iterations:
+            if (it % 50 == 0 or it == opt_cfg.iterations) and primary:
                 log.sync()
                 rate = it / max(time.time() - log.t_start, 1e-9)
                 print(f"[{it}/{opt_cfg.iterations}] "
                       f"loss={log.ema_photo:.5f} cut={int(out.cut_size)} "
                       f"it/s={rate:.2f}", flush=True)
-            if it in save_iterations:
+            if it in save_iterations and primary:
                 path = scene.save(it, state, hierarchy=h)
                 print(f"[{it}] saved -> {path}", flush=True)
-            if checkpoint_iterations and it in checkpoint_iterations:
+            if checkpoint_iterations and it in checkpoint_iterations \
+                    and primary:
                 zero_exp = torch.zeros((1, 3, 4), device=device)
                 ckpt_lib.save_flat(
                     os.path.join(scene.model_path, f"chkpnt{it}.npz"),

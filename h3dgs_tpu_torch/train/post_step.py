@@ -96,42 +96,47 @@ def select_cut_gaussians(state: GaussianState, nodes, boxes, cam_center,
 
 def splat_cut_gaussians(xyz, scales, quats, opac, shs, camera: Camera,
                         sh_degree: int, bg, raster_cfg: RasterizeConfig,
-                        exposure=None):
-    """Rasterize pre-selected flat Gaussians (render_cut's second half)."""
+                        exposure=None, band_devices=None):
+    """Rasterize pre-selected flat Gaussians (render_cut's second half).
+    ``band_devices`` (two or more) renders the frame in pixel bands, one
+    per device (``parallel/band_render.py``; forward only)."""
     k = (sh_degree + 1) ** 2
-    out = rasterize(xyz, scales, quats, opac, shs[:, :k], camera,
-                    sh_degree, bg, config=raster_cfg)
+    if band_devices is not None and len(band_devices) > 1:
+        from ..parallel.band_render import render_banded
+        out = render_banded(xyz, scales, quats, opac, shs[:, :k], camera,
+                            sh_degree, bg, band_devices, config=raster_cfg)
+    else:
+        out = rasterize(xyz, scales, quats, opac, shs[:, :k], camera,
+                        sh_degree, bg, config=raster_cfg)
     if exposure is not None:
         out["render"] = apply_exposure(out["render"], exposure)
     out["render"] = torch.clamp(out["render"], 0.0, 1.0)
     return out
 
 
-def make_post_train_step(opt_cfg: OptimizationConfig,
+class PostViewGrads(NamedTuple):
+    """One view's post-training loss gradients."""
+    g_params: dict               # name -> [C, ...] gradient
+    photo_loss: torch.Tensor
+    cut_size: torch.Tensor       # true cut size
+    n_visible: torch.Tensor
+
+
+def make_post_view_grads(opt_cfg: OptimizationConfig,
                          raster_cfg: RasterizeConfig,
-                         skybox_locked: bool = True,
                          use_exposure: bool = True):
-    """Build the post-optimization step.
+    """The cut render of one view at its own limit and exposure row, its
+    photometric loss and one ``torch.autograd.grad`` (K1, K2)."""
 
-    The exposure row is the *pretrained* per-image transform (loaded from
-    exposure.json): applied, never optimized. Every cut is sized exactly
-    from the selection (the reference's ``max_cut`` capacity, which its
-    static shapes need and which can truncate, has no counterpart). The
-    step is a plain eager function; the update runs under
-    ``torch.no_grad()`` and returns new tensors.
-    """
-
-    def step(state: GaussianState, opt: adam_lib.AdamState,
-             batch: ViewBatch, nodes: torch.Tensor, boxes: torch.Tensor,
-             anchor_mask: torch.Tensor, exposure_row: torch.Tensor,
-             limit, iteration, bg: torch.Tensor, spatial_lr_scale,
-             sh_degree: int) -> PostStepOutput:
+    def view_grads(state: GaussianState, batch: ViewBatch,
+                   nodes: torch.Tensor, boxes: torch.Tensor,
+                   exposure_row: torch.Tensor, limit, bg: torch.Tensor,
+                   sh_degree: int) -> PostViewGrads:
         batch = decode_view(batch)
         exp_row = exposure_row if use_exposure else None
         names = list(state.trainable_dict())
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.trainable_dict().items()}
-
         with torch.enable_grad():
             out = render_cut(state, nodes, boxes, batch.camera, limit,
                              sh_degree, bg, raster_cfg, None,
@@ -142,30 +147,68 @@ def make_post_train_step(opt_cfg: OptimizationConfig,
             grads = torch.autograd.grad(photo, [params[k] for k in names],
                                         allow_unused=True,
                                         materialize_grads=True)
-
-        with torch.no_grad():
-            g_params = dict(zip(names, grads))
-            # --- anchor + skybox gradient locking ---
-            locked = anchor_mask
-            if skybox_locked and state.n_skybox:
-                locked = locked | state.locked_rows_mask()
-            for k in g_params:
-                m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
-                g_params[k] = torch.where(m, torch.zeros_like(g_params[k]),
-                                          g_params[k])
-
-            # --- dense Adam (eps 1e-15) ---
-            lrs = schedules.gaussian_lr_dict(opt_cfg, float(iteration))
-            lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
-            all_rows = torch.ones(state.capacity, dtype=torch.bool,
-                                  device=state.device)
-            new_params, new_opt = adam_lib.sparse_adam_update(
-                state.trainable_dict(), g_params, opt, lrs, all_rows)
-            new_state = state.replace_trainable(new_params)
-
-        return PostStepOutput(
-            state=new_state, opt=new_opt, photo_loss=photo.detach(),
+        return PostViewGrads(
+            g_params=dict(zip(names, grads)), photo_loss=photo.detach(),
             cut_size=out["cut"].count,
             n_visible=out["visibility_filter"].sum())
+
+    return view_grads
+
+
+def make_post_update(opt_cfg: OptimizationConfig,
+                     skybox_locked: bool = True):
+    """Zero the anchor and skybox gradients, then one dense Adam step
+    (eps 1e-15) over every row."""
+
+    @torch.no_grad()
+    def update(state: GaussianState, opt: adam_lib.AdamState,
+               g_params: dict, anchor_mask: torch.Tensor, iteration,
+               spatial_lr_scale):
+        locked = anchor_mask
+        if skybox_locked and state.n_skybox:
+            locked = locked | state.locked_rows_mask()
+        for k in g_params:
+            m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
+            g_params[k] = torch.where(m, torch.zeros_like(g_params[k]),
+                                      g_params[k])
+        lrs = schedules.gaussian_lr_dict(opt_cfg, float(iteration))
+        lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
+        all_rows = torch.ones(state.capacity, dtype=torch.bool,
+                              device=state.device)
+        new_params, new_opt = adam_lib.sparse_adam_update(
+            state.trainable_dict(), g_params, opt, lrs, all_rows)
+        return state.replace_trainable(new_params), new_opt
+
+    return update
+
+
+def make_post_train_step(opt_cfg: OptimizationConfig,
+                         raster_cfg: RasterizeConfig,
+                         skybox_locked: bool = True,
+                         use_exposure: bool = True):
+    """Build the post-optimization step: the data-parallel post step of
+    ``parallel/step.py`` over one view (its gradients from
+    ``make_post_view_grads``, then ``make_post_update``).
+
+    The exposure row is the *pretrained* per-image transform (loaded from
+    exposure.json): applied, never optimized. Every cut is sized exactly
+    from the selection (the reference's ``max_cut`` capacity, which its
+    static shapes need and which can truncate, has no counterpart). The
+    step is a plain eager function; the update runs under
+    ``torch.no_grad()`` and returns new tensors.
+    """
+    from ..parallel.step import make_dp_post_step  # it imports this module
+
+    dp_step = make_dp_post_step(opt_cfg, raster_cfg, skybox_locked,
+                                use_exposure)
+
+    def step(state: GaussianState, opt: adam_lib.AdamState,
+             batch: ViewBatch, nodes: torch.Tensor, boxes: torch.Tensor,
+             anchor_mask: torch.Tensor, exposure_row: torch.Tensor,
+             limit, iteration, bg: torch.Tensor, spatial_lr_scale,
+             sh_degree: int) -> PostStepOutput:
+        return dp_step(state, opt, [batch], nodes, boxes, anchor_mask,
+                       [exposure_row], [limit], iteration, bg,
+                       spatial_lr_scale, sh_degree)
 
     return step

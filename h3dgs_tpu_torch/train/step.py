@@ -1,7 +1,9 @@
 """The per-view training step of flat-model training (counterpart of
 ``h3dgs_tpu/train/step.py``).
 
-One step: render -> photometric (+ optional inverse-depth) loss -> one
+One step (``make_view_grads`` then ``make_update``, run by the
+data-parallel step of ``parallel/step.py``, which ``make_train_step``
+calls with one view): render -> photometric (+ optional inverse-depth) loss -> one
 ``torch.autograd.grad`` through the projection and the blend (K1 forward,
 K2 backward) -> skybox gradient locking -> densification stats from the
 screen-space offset gradient -> masked sparse Adam -> exposure Adam ->
@@ -123,25 +125,29 @@ def render_for_training(state: GaussianState, camera: Camera,
     return out
 
 
-def make_train_step(opt_cfg: OptimizationConfig, raster_cfg: RasterizeConfig,
-                    use_depth_loss: bool = True, use_exposure: bool = True,
-                    skybox_locked: bool = True, freeze_xyz: bool = False,
-                    shrink_threshold: float = 0.02,
-                    shrink_protect_scaffold: bool = True,
-                    skip_shrink: bool = False):
-    """Build the train step for a given config.
+class ViewGrads(NamedTuple):
+    """One view's loss gradients and what the update reads of its
+    render."""
+    g_params: dict                # name -> [C, ...] gradient
+    g_exposure: Optional[torch.Tensor]  # [3, 4] of the view's row
+    g_offset: torch.Tensor        # [C, 2] screen-space offset gradient
+    radii: torch.Tensor           # [C] int32
+    visible: torch.Tensor         # [C] bool
+    photo_loss: torch.Tensor
+    depth_loss: torch.Tensor
+    n_duplicates: torch.Tensor
 
-    freeze_xyz / shrink_threshold=0.1 / use_depth_loss=False /
-    use_exposure=False reproduce the coarse trainer's variant.
-    """
 
-    def step(state: GaussianState, opt: adam_lib.AdamState,
-             exposure: torch.Tensor, exposure_opt: adam_lib.AdamState,
-             batch: ViewBatch, iteration, bg: torch.Tensor,
-             spatial_lr_scale, cameras_extent,
-             sh_degree: int) -> StepOutput:
+def make_view_grads(opt_cfg: OptimizationConfig,
+                    raster_cfg: RasterizeConfig,
+                    use_depth_loss: bool = True, use_exposure: bool = True):
+    """The loss of one view and one ``torch.autograd.grad`` through the
+    projection and the blend (K1 forward, K2 backward)."""
+
+    def view_grads(state: GaussianState, exposure: torch.Tensor,
+                   batch: ViewBatch, iteration, bg: torch.Tensor,
+                   sh_degree: int) -> ViewGrads:
         batch = decode_view(batch)
-        it = float(iteration)
         names = list(state.trainable_dict())
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.trainable_dict().items()}
@@ -150,8 +156,8 @@ def make_train_step(opt_cfg: OptimizationConfig, raster_cfg: RasterizeConfig,
         exp_row = (exposure[batch.image_idx].detach().requires_grad_(True)
                    if use_exposure else None)
         depth_w = schedules.expon_lr(
-            it, opt_cfg.depth_l1_weight_init, opt_cfg.depth_l1_weight_final,
-            max_steps=opt_cfg.iterations)
+            float(iteration), opt_cfg.depth_l1_weight_init,
+            opt_cfg.depth_l1_weight_final, max_steps=opt_cfg.iterations)
 
         with torch.enable_grad():
             st = state.replace_trainable(params)
@@ -174,61 +180,106 @@ def make_train_step(opt_cfg: OptimizationConfig, raster_cfg: RasterizeConfig,
             grads = torch.autograd.grad(photo + depth, inputs,
                                         allow_unused=True,
                                         materialize_grads=True)
+        return ViewGrads(
+            g_params=dict(zip(names, grads[:len(names)])),
+            g_exposure=grads[len(names) + 1] if use_exposure else None,
+            g_offset=grads[len(names)], radii=out["radii"],
+            visible=out["visibility_filter"], photo_loss=photo.detach(),
+            depth_loss=depth.detach(), n_duplicates=out["n_duplicates"])
 
-        with torch.no_grad():
-            g_params = dict(zip(names, grads[:len(names)]))
-            g_offset = grads[len(names)]
+    return view_grads
 
-            # --- skybox gradient locking (train_single.py:162-168) ---
-            if skybox_locked:
-                locked = state.locked_rows_mask()
-                for k in g_params:
-                    m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
-                    g_params[k] = torch.where(m, torch.zeros_like(
-                        g_params[k]), g_params[k])
 
-            # --- densification stats (screen-space positional grads) ---
-            radii = out["radii"]
-            visible = out["visibility_filter"]
-            new_state = densify_lib.add_densification_stats(
-                state, g_offset, radii, visible)
+def make_update(opt_cfg: OptimizationConfig, use_exposure: bool = True,
+                skybox_locked: bool = True, freeze_xyz: bool = False,
+                shrink_threshold: float = 0.02,
+                shrink_protect_scaffold: bool = True,
+                skip_shrink: bool = False):
+    """Everything after the gradients, once a step: skybox gradient
+    locking -> densification stats from the screen-space offset gradient
+    -> masked sparse Adam -> exposure Adam -> big-Gaussian shrink.
+    ``g_exposure`` is the gradient of the whole exposure table."""
 
-            # --- sparse Adam on rows with a nonzero opacity gradient ---
-            relevant = (g_params["opacity"][:, 0] != 0.0) & state.alive
-            lrs = schedules.gaussian_lr_dict(opt_cfg, it,
-                                             freeze_xyz=freeze_xyz)
-            lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
-            new_params, new_opt = adam_lib.sparse_adam_update(
-                state.trainable_dict(), g_params, opt, lrs, relevant)
-            new_state = new_state.replace_trainable(new_params)
+    @torch.no_grad()
+    def update(state: GaussianState, opt: adam_lib.AdamState,
+               exposure: torch.Tensor, exposure_opt: adam_lib.AdamState,
+               g_params: dict, g_exposure: Optional[torch.Tensor],
+               g_offset: torch.Tensor, radii: torch.Tensor,
+               visible: torch.Tensor, iteration, spatial_lr_scale,
+               cameras_extent):
+        it = float(iteration)
+        # --- skybox gradient locking (train_single.py:162-168) ---
+        if skybox_locked:
+            locked = state.locked_rows_mask()
+            for k in g_params:
+                m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
+                g_params[k] = torch.where(m, torch.zeros_like(
+                    g_params[k]), g_params[k])
 
-            # --- exposure Adam (dense, torch defaults: eps 1e-8) ---
-            if use_exposure:
-                exp_lr = schedules.expon_lr(
-                    it, opt_cfg.exposure_lr_init, opt_cfg.exposure_lr_final,
-                    lr_delay_steps=opt_cfg.exposure_lr_delay_steps,
-                    lr_delay_mult=opt_cfg.exposure_lr_delay_mult,
-                    max_steps=opt_cfg.iterations)
-                g_exp_full = torch.zeros_like(exposure)
-                g_exp_full[batch.image_idx] = grads[len(names) + 1]
-                all_rows = torch.ones(exposure.shape[0], dtype=torch.bool,
-                                      device=exposure.device)
-                new_exp, exposure_opt = adam_lib.sparse_adam_update(
-                    {"exposure": exposure}, {"exposure": g_exp_full},
-                    exposure_opt, {"exposure": exp_lr}, all_rows, eps=1e-8)
-                exposure = new_exp["exposure"]
+        # --- densification stats (screen-space positional grads) ---
+        new_state = densify_lib.add_densification_stats(
+            state, g_offset, radii, visible)
 
-            # --- every-iteration big-Gaussian shrink ---
-            if not skip_shrink:
-                new_state = densify_lib.shrink_big_gaussians(
-                    new_state, cameras_extent, shrink_threshold,
-                    protect_scaffold=shrink_protect_scaffold)
+        # --- sparse Adam on rows with a nonzero opacity gradient ---
+        relevant = (g_params["opacity"][:, 0] != 0.0) & state.alive
+        lrs = schedules.gaussian_lr_dict(opt_cfg, it, freeze_xyz=freeze_xyz)
+        lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
+        new_params, new_opt = adam_lib.sparse_adam_update(
+            state.trainable_dict(), g_params, opt, lrs, relevant)
+        new_state = new_state.replace_trainable(new_params)
 
-        return StepOutput(
-            state=new_state, opt=new_opt, exposure=exposure,
-            exposure_opt=exposure_opt, photo_loss=photo.detach(),
-            depth_loss=depth.detach(), n_visible=visible.sum(),
-            n_duplicates=out["n_duplicates"])
+        # --- exposure Adam (dense, torch defaults: eps 1e-8) ---
+        if use_exposure:
+            exp_lr = schedules.expon_lr(
+                it, opt_cfg.exposure_lr_init, opt_cfg.exposure_lr_final,
+                lr_delay_steps=opt_cfg.exposure_lr_delay_steps,
+                lr_delay_mult=opt_cfg.exposure_lr_delay_mult,
+                max_steps=opt_cfg.iterations)
+            all_rows = torch.ones(exposure.shape[0], dtype=torch.bool,
+                                  device=exposure.device)
+            new_exp, exposure_opt = adam_lib.sparse_adam_update(
+                {"exposure": exposure}, {"exposure": g_exposure},
+                exposure_opt, {"exposure": exp_lr}, all_rows, eps=1e-8)
+            exposure = new_exp["exposure"]
+
+        # --- every-iteration big-Gaussian shrink ---
+        if not skip_shrink:
+            new_state = densify_lib.shrink_big_gaussians(
+                new_state, cameras_extent, shrink_threshold,
+                protect_scaffold=shrink_protect_scaffold)
+        return new_state, new_opt, exposure, exposure_opt
+
+    return update
+
+
+def make_train_step(opt_cfg: OptimizationConfig, raster_cfg: RasterizeConfig,
+                    use_depth_loss: bool = True, use_exposure: bool = True,
+                    skybox_locked: bool = True, freeze_xyz: bool = False,
+                    shrink_threshold: float = 0.02,
+                    shrink_protect_scaffold: bool = True,
+                    skip_shrink: bool = False):
+    """Build the train step for a given config: the data-parallel step of
+    ``parallel/step.py`` over one view (its gradients from
+    ``make_view_grads``, then ``make_update``), with no division and no
+    reduction.
+
+    freeze_xyz / shrink_threshold=0.1 / use_depth_loss=False /
+    use_exposure=False reproduce the coarse trainer's variant.
+    """
+    from ..parallel.step import make_dp_train_step  # it imports this module
+
+    dp_step = make_dp_train_step(
+        opt_cfg, raster_cfg, use_depth_loss, use_exposure, skybox_locked,
+        freeze_xyz, shrink_threshold, shrink_protect_scaffold, skip_shrink)
+
+    def step(state: GaussianState, opt: adam_lib.AdamState,
+             exposure: torch.Tensor, exposure_opt: adam_lib.AdamState,
+             batch: ViewBatch, iteration, bg: torch.Tensor,
+             spatial_lr_scale, cameras_extent,
+             sh_degree: int) -> StepOutput:
+        return dp_step(state, opt, exposure, exposure_opt, [batch],
+                       iteration, bg, spatial_lr_scale, cameras_extent,
+                       sh_degree)
 
     return step
 

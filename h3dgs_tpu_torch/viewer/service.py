@@ -8,9 +8,11 @@ the view-adaptive cut would exceed a splat budget. Exposes:
   * serve() — the network_gui TCP protocol loop;
   * orbit() — offline fly-through rendering to PNG frames.
 
-Runs on the card unless ``device="cpu"`` is passed. Band sharding across
-devices (``n_bands`` > 1) and the browser viewer (``--web_port``) are
-later slices of the port and raise ``NotImplementedError``.
+Runs on the card unless ``device="cpu"`` is passed. ``n_bands`` splits
+each frame into pixel bands over that many visible cards
+(``parallel/band_render.py``; 0 = every card, more than there are is cut
+to what there is, so one card renders one band). ``--web_port`` serves
+the browser viewer (``viewer/web.py``) instead of the socket protocol.
 
 Run: python -m h3dgs_tpu_torch.viewer.service --hierarchy merged.hier
 """
@@ -30,6 +32,7 @@ from ..hierarchy import cut as cut_lib
 from ..hierarchy.io import read_hier
 from ..model.init import state_from_hierarchy
 from ..ops.rasterize import RasterizeConfig
+from ..parallel import sharding as shard_lib
 from ..scene.camera import Camera, look_at_camera
 from ..train.post_step import select_cut_gaussians, splat_cut_gaussians
 from ..utils.runtime import resolve_device
@@ -56,13 +59,13 @@ class HierarchyRenderer:
                  raster_cfg: Optional[RasterizeConfig] = None,
                  white_background: bool = False, n_bands: int = 0,
                  reuse_margin: float = 0.05, device=None):
-        # n_bands: 0 (all local devices) and 1 both render on one device
-        # until pixel-band sharding is ported.
-        if n_bands > 1:
-            raise NotImplementedError(
-                "pixel-band sharding across devices (n_bands > 1) is not "
-                "ported yet")
         self.device = resolve_device(device)
+        # Pixel bands over the visible cards for single-frame latency
+        # (n_bands=0: every card; 1: this device alone).
+        avail = shard_lib.visible_devices(self.device.type)
+        n_bands = len(avail) if n_bands == 0 else min(n_bands, len(avail))
+        self.band_devices = (shard_lib.band_devices(n_bands, avail)
+                             if n_bands > 1 else None)
         self.h = read_hier(hierarchy_path)
         self.state, _ = state_from_hierarchy(self.h, scaffold_dir,
                                              max_sh_degree=sh_degree,
@@ -132,7 +135,8 @@ class HierarchyRenderer:
     def _splat(self, camera: Camera, xyz, scales, quats, opac, shs):
         out = splat_cut_gaussians(xyz, scales, quats, opac, shs,
                                   camera.to(self.device), self.sh_degree,
-                                  self.bg, self.raster_cfg)
+                                  self.bg, self.raster_cfg,
+                                  band_devices=self.band_devices)
         # uint8 on the device (by truncation): the host copy is 4x smaller.
         img = torch.clamp(out["render"], 0.0, 1.0)
         return (img.permute(1, 2, 0) * 255.0).to(torch.uint8)
@@ -259,19 +263,16 @@ def main(argv=None):
     p.add_argument("--orbit_dir", default="",
                    help="render an offline orbit instead of serving")
     p.add_argument("--web_port", type=int, default=0,
-                   help="browser viewer (not ported yet)")
+                   help="serve the browser viewer on this port instead of "
+                        "the network_gui protocol")
     p.add_argument("--n_frames", type=int, default=60)
     p.add_argument("--radius", type=float, default=50.0)
     p.add_argument("--width", type=int, default=1200)
     p.add_argument("--n_bands", type=int, default=0,
-                   help="pixel bands sharded across devices (values > 1 "
-                        "are not ported yet)")
+                   help="pixel bands across the visible cards (0 = all)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without it)")
     a = p.parse_args(argv)
-    if a.web_port:
-        raise NotImplementedError("the browser viewer (--web_port) is not "
-                                  "ported yet")
     budget = splats_for_mb(a.budget_mb) if a.budget_mb else a.budget
     r = HierarchyRenderer(a.hierarchy, a.scaffold_file, budget=budget,
                           n_bands=a.n_bands, device=a.device)
@@ -279,6 +280,9 @@ def main(argv=None):
         orbit(r, a.orbit_dir, n_frames=a.n_frames, radius=a.radius,
               tau=a.tau, width=a.width,
               height_px=int(a.width * 9 / 16))
+    elif a.web_port:
+        from .web import WebViewer
+        WebViewer(r, host=a.ip, port=a.web_port, tau=a.tau).serve_forever()
     else:
         serve(r, a.ip, a.port, a.tau)
 

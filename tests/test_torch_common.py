@@ -11,6 +11,7 @@ from __future__ import annotations
 import ast
 import os
 import re
+import socket
 
 import numpy as np
 import pytest
@@ -205,15 +206,32 @@ def test_entry_points_need_cuda_or_a_device(tmp_path, monkeypatch):
     assert img.shape == (48, 64, 3)
 
 
-def test_unported_options_raise(tmp_path):
-    from h3dgs_tpu_torch.viewer import service
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """The options that raised before their slice was ported: ``n_bands``
+    is cut to the visible devices (one on the CPU, so no bands), asking
+    ``band_devices`` for more devices than it is given raises
+    ``ValueError`` as the JAX mesh does, and ``--web_port`` starts the
+    browser viewer."""
+    from h3dgs_tpu_torch.parallel import sharding
+    from h3dgs_tpu_torch.viewer import service, web
 
     path, _ = write_hier_pair(tmp_path, n=20, seed=2)
-    with pytest.raises(NotImplementedError):
-        service.HierarchyRenderer(path, n_bands=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        service.main(["--hierarchy", path, "--web_port", "8080",
-                      "--device", "cpu"])
+    r = service.HierarchyRenderer(path, n_bands=2, device="cpu")
+    assert r.band_devices is None
+    assert sharding.band_devices(2, ["cpu"] * 3) == [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="only 2 are available"):
+        sharding.band_devices(3, ["cpu"] * 2)
+    started = []
+    monkeypatch.setattr(web.WebViewer, "serve_forever",
+                        lambda self: started.append(self)
+                        or self.server.server_close())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    service.main(["--hierarchy", path, "--web_port", str(port), "--device",
+                  "cpu"])
+    assert started[0].port == port
+    assert len(started) == 1 and started[0].renderer.h.n_nodes == 39
 
 
 def test_blend_backward_runs():

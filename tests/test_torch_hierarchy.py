@@ -48,7 +48,7 @@ def test_build_hierarchy_bit_equal():
     hj = jtree.build_hierarchy(means, shs, opac, log_s, quats,
                                locked_leaf_mask=locked, backend="numpy")
     ht = ttree.build_hierarchy(means, shs, opac, log_s, quats,
-                               locked_leaf_mask=locked)
+                               locked_leaf_mask=locked, backend="numpy")
     ht.validate()
     for f in H_FIELDS:
         a, b = getattr(hj, f), getattr(ht, f)

@@ -155,17 +155,23 @@ def chunk_dirs(tmp_path):
 
 
 def test_merger_cli_same_bytes(chunk_dirs, tmp_path, capsys):
-    """Both CLIs on the same chunks: ``merged.hier`` byte for byte (the
-    JAX tool with ``--backend numpy``), the same log lines, and the
-    ``.hier`` fallback taken for the chunk without ``.hier_opt``."""
+    """Both CLIs on the same chunks: ``merged.hier`` byte for byte (both
+    tools with ``--backend numpy``), the same log lines but for the
+    port's line naming the backend that ran, and the ``.hier`` fallback
+    taken for the chunk without ``.hier_opt``."""
     trained, chunks = chunk_dirs
     j_out, t_out = str(tmp_path / "j" / "merged.hier"), str(
         tmp_path / "t" / "merged.hier")
     jmerger.main([trained, "0", chunks, j_out, "c0", "c1",
                   "--backend", "numpy"])
     j_said = capsys.readouterr().out
-    tmerger.main([trained, "0", chunks, t_out, "c0", "c1"])
-    t_said = capsys.readouterr().out
+    tmerger.main([trained, "0", chunks, t_out, "c0", "c1", "--backend",
+                  "numpy"])
+    t_lines = capsys.readouterr().out.splitlines(keepends=True)
+    backend_line = [ln for ln in t_lines if "merged by the" in ln]
+    assert len(backend_line) == 1 and "numpy backend" in backend_line[0]
+    t_lines.remove(backend_line[0])
+    t_said = "".join(t_lines)
     assert t_said == j_said.replace(j_out, t_out)
     assert "hierarchy.hier_opt" in t_said and \
         os.path.join("c1", "hierarchy.hier") + "\n" in t_said
@@ -180,17 +186,31 @@ def test_merger_cli_same_bytes(chunk_dirs, tmp_path, capsys):
         assert fj.read() == ft.read()
 
 
-def test_merger_backends_not_ported(chunk_dirs, tmp_path):
-    """``--backend native`` raises and names the roadmap item (it never
-    runs numpy under that name); an unknown backend and a short argument
-    list fail too; nothing is written."""
+def test_merger_backends_not_ported(chunk_dirs, tmp_path, capsys):
+    """``--backend native`` runs the port's C++ merger (built from
+    ``native/hierarchy_native.cpp``): the same ``merged.hier`` bytes as
+    the JAX tool's ``--backend native``, and it says so; ``auto`` picks
+    it when a C++ compiler is found. An unknown backend and a short
+    argument list fail and write nothing."""
+    from h3dgs_tpu_torch import native as tnative
+
     trained, chunks = chunk_dirs
     out = str(tmp_path / "merged.hier")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmerger.main([trained, "0", chunks, out, "c0", "c1", "--backend",
-                      "native"])
     with pytest.raises(ValueError, match="unknown merger backend"):
         tmerger.merge_chunks(trained, chunks, out, ["c0"], backend="cuda")
     with pytest.raises(SystemExit):
         tmerger.main([trained, "0", chunks, out])
     assert not os.path.exists(out)
+    if not tnative.native_available():
+        pytest.skip("no C++ compiler")
+    j_out = str(tmp_path / "j" / "merged.hier")
+    jmerger.main([trained, "0", chunks, j_out, "c0", "c1", "--backend",
+                  "native"])
+    capsys.readouterr()
+    for backend in ("native", "auto"):
+        tmerger.main([trained, "0", chunks, out, "c0", "c1", "--backend",
+                      backend])
+        assert "merged by the native backend" in capsys.readouterr().out
+        with open(j_out, "rb") as fj, open(out, "rb") as ft:
+            assert fj.read() == ft.read(), backend
+        os.remove(out)

@@ -41,7 +41,7 @@ from h3dgs_tpu_torch.hierarchy import io as thio
 from h3dgs_tpu_torch.model import init as tinit
 from h3dgs_tpu_torch.model import state as tstate
 from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig as TRasterCfg
-from h3dgs_tpu_torch.train import loop as tloop
+from h3dgs_tpu_torch.parallel import step as tpar
 from h3dgs_tpu_torch.train import post_step as tpost
 from h3dgs_tpu_torch.train import step as tstep
 
@@ -304,8 +304,9 @@ def chunk(tmp_path_factory):
 def test_create_hierarchy_matches_jax(chunk, tmp_path, capsys):
     """The same .ply, bounds and scaffold through both packages' creators:
     ``anchors.bin`` byte for byte, and ``hierarchy.hier`` byte for byte
-    (the JAX creator is given its numpy tree builder, which the port's
-    copies; its native builder merges in another floating-point order)."""
+    (both with the numpy tree builder, which the port copies; the C++
+    builder merges in another floating-point order), and the same log
+    but for the port's line naming the backend that ran."""
     jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
     orig = jtree.build_hierarchy
 
@@ -319,8 +320,13 @@ def test_create_hierarchy_matches_jax(chunk, tmp_path, capsys):
     finally:
         jtree.build_hierarchy = orig
     j_said = capsys.readouterr().out
-    tcreator.main([chunk["ply"], chunk["root"], tdir, chunk["scaffold"]])
-    assert capsys.readouterr().out == j_said.replace(jdir, tdir)
+    tcreator.main([chunk["ply"], chunk["root"], tdir, chunk["scaffold"],
+                   "--backend", "numpy"])
+    t_said = capsys.readouterr().out.splitlines(keepends=True)
+    backend_line = [ln for ln in t_said if "built by the" in ln]
+    assert len(backend_line) == 1 and "numpy backend" in backend_line[0]
+    t_said.remove(backend_line[0])
+    assert "".join(t_said) == j_said.replace(jdir, tdir)
     assert "2 scaffold-position leaves" in j_said
     for name in ("anchors.bin", "hierarchy.hier"):
         with open(os.path.join(jdir, name), "rb") as fj, \
@@ -375,7 +381,7 @@ def test_train_post_cli_cpu(chunk, tmp_path, monkeypatch):
         os.path.join(out, "exposure.json"),
         {"img_000": np.eye(3, 4, dtype=np.float32) * 0.97})
     seen, splatted = [], []
-    orig = tloop.make_post_train_step
+    orig = tpar.make_dp_post_step
     orig_splat = tpost.splat_cut_gaussians
 
     def splat_spy(xyz, *a, **kw):
@@ -385,18 +391,19 @@ def test_train_post_cli_cpu(chunk, tmp_path, monkeypatch):
     def spy(*a, **kw):
         step = orig(*a, **kw)
 
-        def wrapped(state, opt, batch, nodes, boxes, amask, exp_row, limit,
-                    *sa):
-            o = step(state, opt, batch, nodes, boxes, amask, exp_row, limit,
-                     *sa)
-            center = tstep.decode_view(batch).camera.cam_center
+        def wrapped(state, opt, batch, nodes, boxes, amask, exp_rows,
+                    limits, *sa):
+            o = step(state, opt, batch, nodes, boxes, amask, exp_rows,
+                     limits, *sa)
+            (view,), (limit,) = batch, limits
+            center = tstep.decode_view(view).camera.cam_center
             in_cut = tcut.cut_mask(nodes, boxes, limit, center)[0]
             seen.append((int(o.cut_size), int(in_cut.sum()), state, o.state,
                          float(o.photo_loss)))
             return o
         return wrapped
 
-    monkeypatch.setattr(tloop, "make_post_train_step", spy)
+    monkeypatch.setattr(tpar, "make_dp_post_step", spy)
     monkeypatch.setattr(tpost, "splat_cut_gaussians", splat_spy)
     argv = ["-s", chunk["root"], "-m", out, "--hierarchy", hier,
             "--scaffold_file", chunk["scaffold"], "--skybox_locked",
@@ -404,8 +411,13 @@ def test_train_post_cli_cpu(chunk, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tpost_cli.main(argv)
-    with pytest.raises(NotImplementedError, match="data_devices"):
+    # data_devices > 1 needs a process group of that size (one process
+    # per card); views_per_step must be a multiple of it.
+    with pytest.raises(ValueError, match="data_devices"):
         tpost_cli.main(argv + ["--device", "cpu", "--data_devices", "2"])
+    with pytest.raises(ValueError, match="multiple of data_devices"):
+        tpost_cli.main(argv + ["--device", "cpu", "--data_devices", "2",
+                               "--views_per_step", "3"])
     tpost_cli.main(argv + ["--device", "cpu"])
     assert len(seen) == 6
     h0 = thio.read_hier(hier)
