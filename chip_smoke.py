@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port: the serving path (with
 pixel bands and the browser viewer), the per-chunk training path (one and
 four views a step), the hierarchy post-training path (one and four views
-a step), the merger, the evaluation and the orchestrator.
+a step), the merger, the evaluation, the orchestrator and preprocessing.
 
 Drives ``h3dgs_tpu_torch`` end to end on one NVIDIA GPU at real sizes.
 Serving: a seeded synthetic hierarchy of 1,000,000 leaves (the wavy
@@ -34,6 +34,12 @@ through ``train_post --views_per_step 4`` (20 iterations); pixel bands of
 the serving frame; ``WebViewer`` over HTTP; both hierarchy backends (C++,
 built from ``native/hierarchy_native.cpp``, and numpy) for creation and
 merging; the trained state through the packed ``.pt`` format.
+Preprocessing (README steps 1-3): a synthetic aligned project of 1,200
+views at 1600x900 over a 300 m square and 1.5M ground points, chunked by
+``python -m h3dgs_tpu_torch.preprocess.drivers chunks`` on the card,
+calibrated by ``drivers depth`` against 240 known inverse-depth maps,
+masked by both mask tools, each held against the CPU path, then the host
+modules at that size.
 
 Phases, each failing the run with its traceback:
   1. card name and power limit (nvidia-smi); fails without CUDA;
@@ -72,6 +78,19 @@ Phases, each failing the run with its traceback:
      frame render and metric times), LPIPS on the card against float64
      on the CPU;
  11. ``full_train`` in child processes on the card, and its resume;
+     then preprocessing: the project written (its images as libpng
+     filters them, each texture decoded back), ``drivers chunks`` in a
+     child process (chunks.txt, camera counts, no points in image
+     records, no blurred view, boxes respected, no point in two chunks,
+     and ``make_chunks(device="cpu")`` byte-equal), ``drivers depth``
+     (every view with a map recovers its 1/a and -b/a, the CPU path
+     within 1e-6), ``masks uint8`` and ``masks black`` bit-equal to the
+     CPU path, and ``auto_reorient``, ``simplify_images``, the distance
+     matcher, ``fill_database`` and ``transform_colmap`` against a known
+     sim(3) (points and camera centres within 1e-9, each quaternion the
+     composed rotation's), the Laplacian pass's images/s on the
+     project's files and on the same samples with filter None, each
+     step's wall time logged (no kernel runs here);
  12. each kernel against its plain PyTorch version on one frame's or one
      view's inputs, with times and the kernel's bound; for the blend
      kernels also the wrapper's tile sort and the pack pre-pass on their
@@ -188,6 +207,44 @@ ORCH_VIEWS = 8
 ORCH_W, ORCH_H = 800, 450
 ORCH_ITERS = 30
 ORCH_TIMEOUT_S = 600
+# Preprocessing (README steps 1-3) on a seeded synthetic aligned project
+# written with the port's own writers: PRE_CAMS PINHOLE views at PRE_W x
+# PRE_H on a jittered grid over a PRE_AREA m square, 25-40 m up, looking
+# down and forward at varied headings; PRE_POINTS SfM points on the ground
+# plane (some with errors that the chunker's error < 10 filter drops),
+# each view keeping up to PRE_MAX_VISIBLE of the points in its frame and
+# a few -1 ids; PRE_TEXTURES textured images and PRE_BLURRED heavily
+# blurred ones hard-linked under the views' names; PRE_TEST test views;
+# 16-bit inverse-depth maps at half resolution for PRE_DEPTH_VIEWS views,
+# each the view's own plane geometry times a known a plus b; PRE_MASKS
+# RGBA masks at half resolution.
+PRE_CAMS = 1200
+PRE_W, PRE_H = 1600, 900
+PRE_FOCAL = 1200.0
+PRE_AREA = 300.0
+PRE_POINTS = 1_500_000
+PRE_MAX_VISIBLE = 4000
+PRE_TEXTURES, PRE_BLURRED = 24, 4
+PRE_TEST = 20
+PRE_DEPTH_VIEWS = 240
+PRE_MASKS = 200
+PRE_CHUNK = 100.0
+PRE_MIN_CAMS = 100
+PRE_MAX_CAMS = 200
+PRE_TIMEOUT_S = 600
+# Views timed on their own for the Laplacian pass's rates.
+PRE_RATE_VIEWS = 120
+# The calibration recovers 1/a and -b/a up to the maps' 16-bit rounding
+# (1.5e-5 against values spread over ~0.3) and the replicated border
+# column; the CPU path's samples differ from the card's by FMA rounding
+# only; a known sim(3) brings the points and the camera centres back to
+# float64 rounding, and transform_colmap writes the quaternion of the
+# rotation it composes: rotmat2qvec's float32 values, equal to the check's
+# own to two float32 units in the last place at 1.
+PRE_DEPTH_TOL = 1e-3
+PRE_CPU_TOL = 1e-6
+PRE_SIM3_TOL = 1e-9
+PRE_QVEC_TOL = 2.0 ** -23
 # K2: about 20 FP32 operations to recompute alpha per evaluated (entry,
 # pixel) pair up to the pixel's last contributing entry, and about 40 more
 # per contributing pair (T by division, d_alpha, the chain to means2d and
@@ -2382,6 +2439,607 @@ def orchestrate_phase(tmp: str, rng, look_at_camera) -> None:
         f"mtimes unchanged), merger only; {wall:.1f} s wall")
 
 
+def pre_cameras(rng):
+    """PRE_CAMS views: centers [N, 3] and world-to-camera rotations
+    [N, 3, 3] (rows: right, down, forward), forward pitched 35-65 degrees
+    below the horizon at a uniform heading."""
+    g = int(np.ceil(np.sqrt(PRE_CAMS)))
+    cells = rng.permutation(g * g)[:PRE_CAMS]
+    step = PRE_AREA / g
+    centers = np.stack([
+        (cells % g + 0.5 + rng.uniform(-0.3, 0.3, PRE_CAMS)) * step,
+        (cells // g + 0.5 + rng.uniform(-0.3, 0.3, PRE_CAMS)) * step,
+        rng.uniform(25.0, 40.0, PRE_CAMS)], axis=1)
+    heading = rng.uniform(0, 2 * np.pi, PRE_CAMS)
+    pitch = np.radians(rng.uniform(35.0, 65.0, PRE_CAMS))
+    fwd = np.stack([np.cos(pitch) * np.cos(heading),
+                    np.cos(pitch) * np.sin(heading), -np.sin(pitch)], 1)
+    right = np.stack([fwd[:, 1], -fwd[:, 0], np.zeros(PRE_CAMS)], 1)
+    right /= np.linalg.norm(right, axis=1, keepdims=True)
+    down = np.cross(fwd, right)
+    return centers, np.stack([right, down, fwd], axis=1)
+
+
+def pre_visibility(xyz, centers, rots, rng):
+    """Per view: the ids (1-based) and float64 pixel positions of up to
+    PRE_MAX_VISIBLE points in front of it and inside its frame (projected
+    on the card), then a few -1 ids."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    pts = torch.as_tensor(xyz, dtype=torch.float64, device=DEVICE)
+    out = []
+    for c, r in zip(centers, rots):
+        rt = torch.as_tensor(r, dtype=torch.float64, device=DEVICE)
+        pc = (pts - torch.as_tensor(c, device=DEVICE)) @ rt.T
+        z = pc[:, 2]
+        u = PRE_FOCAL * pc[:, 0] / z + PRE_W / 2
+        v = PRE_FOCAL * pc[:, 1] / z + PRE_H / 2
+        idx = torch.nonzero((z > 0.5) & (u >= 0) & (u < PRE_W) & (v >= 0)
+                            & (v < PRE_H))[:, 0]
+        if idx.numel() > PRE_MAX_VISIBLE:
+            pick = torch.randperm(idx.numel(), generator=gen,
+                                  device=DEVICE)[:PRE_MAX_VISIBLE]
+            idx = idx[pick.sort().values]
+        n_bad = int(rng.integers(5, 30))
+        xys = np.concatenate([torch.stack([u[idx], v[idx]], 1).cpu().numpy(),
+                              rng.uniform(0, PRE_W, (n_bad, 2))])
+        pids = np.concatenate([idx.cpu().numpy() + 1,
+                               np.full(n_bad, -1, np.int64)])
+        out.append((pids, xys))
+    return out
+
+
+def write_png_adaptive(path: str, img) -> None:
+    """Write ``img`` ([H, W] or [H, W, C] uint8 / uint16 numpy) as a PNG
+    the way libpng does by default (PIL, and COLMAP's undistorter through
+    FreeImage): each row with the one of the five filters whose bytes,
+    read as signed, sum to the least magnitude, at zlib level 6. The
+    filters run on DEVICE. Returns the rows of each filter type."""
+    import zlib
+
+    depth = 16 if img.dtype == np.uint16 else 8
+    x = torch.from_numpy(img.astype(np.int32)).to(DEVICE)
+    if x.ndim == 2:
+        x = x[..., None]
+    h, w, chans = x.shape
+    if depth == 16:         # big-endian sample bytes
+        x = torch.stack([x >> 8, x & 255], -1)
+    x = x.reshape(h, -1)
+    bpp = chans * depth // 8
+    left = torch.nn.functional.pad(x, (bpp, 0))[:, :-bpp]
+    up = torch.nn.functional.pad(x, (0, 0, 1, 0))[:-1]
+    ul = torch.nn.functional.pad(left, (0, 0, 1, 0))[:-1]
+    p = left + up - ul
+    pa, pb, pc = (p - left).abs(), (p - up).abs(), (p - ul).abs()
+    paeth = torch.where((pa <= pb) & (pa <= pc), left,
+                        torch.where(pb <= pc, up, ul))
+    cand = torch.stack([x, x - left, x - up, x - ((left + up) >> 1),
+                        x - paeth]) & 255
+    ftype = torch.minimum(cand, 256 - cand).sum(-1).argmin(0)
+    rows = cand.gather(0, ftype[None, :, None].expand(1, h, x.shape[1]))[0]
+    data = torch.cat([ftype[:, None], rows], 1).to(torch.uint8).cpu()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + kind + body
+                + zlib.crc32(kind + body).to_bytes(4, "big"))
+    ihdr = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+            + bytes([depth, {1: 0, 2: 4, 3: 2, 4: 6}[chans], 0, 0, 0]))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(data.numpy().tobytes(), 6))
+                + chunk(b"IEND", b""))
+    return torch.bincount(ftype, minlength=5).cpu().numpy()
+
+
+def write_preprocess_project(proj: str, rng) -> dict:
+    """The aligned project in the layout the drivers read
+    (``camera_calibration/{aligned,rectified/images,rectified/depths}``,
+    ``inputs/masks``), and two copies of the masked views' images for the
+    black-mask step. Every image is written as libpng writes it
+    (``write_png_adaptive``), and each texture is decoded back to its
+    samples. Returns what the checks need: the blurred and the masked
+    views' names, each calibrated view's (a, b), and the textures' paths."""
+    import shutil
+
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.io.image import read_png
+
+    cc = os.path.join(proj, "camera_calibration")
+    sparse = os.path.join(cc, "aligned", "sparse", "0")
+    images = os.path.join(cc, "rectified", "images")
+    depths = os.path.join(cc, "rectified", "depths")
+    for d in (images, depths, os.path.join(proj, "textures")):
+        os.makedirs(d)
+    centers, rots = pre_cameras(rng)
+    xyz = np.concatenate([rng.uniform(-60.0, PRE_AREA + 60.0,
+                                      (PRE_POINTS, 2)),
+                          np.zeros((PRE_POINTS, 1))], axis=1)
+    error = rng.uniform(0.2, 2.0, PRE_POINTS)
+    error[rng.random(PRE_POINTS) < 0.04] = 15.0
+    vis = pre_visibility(xyz, centers, rots, rng)
+
+    # Textures: noise softened by a 3 x 3 box, or buried under four 15 x 15
+    # boxes (blurred), one file each, hard-linked under the views' names.
+    textures, filters = [], np.zeros(5, np.int64)
+    for t in range(PRE_TEXTURES + PRE_BLURRED):
+        x = torch.rand(1, 3, PRE_H, PRE_W, generator=torch.Generator(
+            device=DEVICE).manual_seed(t), device=DEVICE)
+        k, reps = (3, 1) if t < PRE_TEXTURES else (15, 4)
+        for _ in range(reps):
+            x = torch.nn.functional.avg_pool2d(x, k, 1, k // 2,
+                                               count_include_pad=False)
+        path = os.path.join(proj, "textures", f"tex_{t:02d}.png")
+        tex = (x[0].permute(1, 2, 0) * 255).to(torch.uint8).cpu().numpy()
+        filters += write_png_adaptive(path, tex)
+        assert np.array_equal(read_png(path), tex), path
+        textures.append(path)
+    cam = colmap_io.ColmapCamera(1, "PINHOLE", PRE_W, PRE_H, np.array(
+        [PRE_FOCAL, PRE_FOCAL, PRE_W / 2, PRE_H / 2]))
+    imgs, blurred, masked, calib = {}, set(), [], {}
+    n_tex = len(textures)
+    for i, ((pids, xys), c, r) in enumerate(zip(vis, centers, rots)):
+        name = f"view_{i:04d}.png"
+        imgs[i + 1] = colmap_io.ColmapImage(
+            i + 1, colmap_io.rotmat2qvec(r), -r @ c, 1, name, xys, pids)
+        os.link(textures[i % n_tex], os.path.join(images, name))
+        if i % n_tex >= PRE_TEXTURES:
+            blurred.add(name)
+        if i % (PRE_CAMS // PRE_DEPTH_VIEWS) == 0:
+            # Inverse depth of the ground plane z = 0 along the pixel's
+            # ray, affine in the pixel: -(R^T K^-1 [u, v, 1])_z / c_z.
+            a, b = rng.uniform(8.0, 12.0), rng.uniform(0.2, 0.3)
+            mx, my = np.meshgrid(np.arange(PRE_W // 2), np.arange(PRE_H // 2))
+            inv = -(r[0, 2] * (2 * mx - PRE_W / 2) / PRE_FOCAL
+                    + r[1, 2] * (2 * my - PRE_H / 2) / PRE_FOCAL
+                    + r[2, 2]) / c[2]
+            write_png_adaptive(os.path.join(depths, name), np.clip(np.round(
+                (a * inv + b) * 65536), 0, 65535).astype(np.uint16))
+            calib[name[:-4]] = (a, b)
+        if i % (PRE_CAMS // PRE_MASKS) == 0:
+            masked.append(name)
+    colmap_io.write_model_binary(
+        sparse, {1: cam}, imgs, colmap_io.ColmapPoints3D(
+            ids=np.arange(1, PRE_POINTS + 1), xyz=xyz,
+            rgb=rng.integers(0, 256, (PRE_POINTS, 3)).astype(np.uint8),
+            error=error, track_offsets=np.zeros(PRE_POINTS + 1, np.int64),
+            track_image_ids=np.zeros(0, np.int32),
+            track_point2d_idxs=np.zeros(0, np.int32)))
+    with open(os.path.join(cc, "aligned", "test.txt"), "w") as f:
+        f.write("".join(f"view_{i:04d}.png\n" for i in rng.choice(
+            PRE_CAMS, PRE_TEST, replace=False)))
+
+    # RGBA masks at half resolution: opaque but for a few discs and a band
+    # of alpha near the 127 threshold; and the masked views' images twice.
+    gy, gx = torch.meshgrid(torch.arange(PRE_H // 2, device=DEVICE),
+                            torch.arange(PRE_W // 2, device=DEVICE),
+                            indexing="ij")
+    for name in masked:
+        alpha = torch.full_like(gx, 255)
+        for _ in range(3):
+            cx, cy = rng.uniform(0, PRE_W // 2), rng.uniform(0, PRE_H // 2)
+            rad = rng.uniform(0.025, 0.1) * PRE_W
+            alpha[(gx - cx) ** 2 + (gy - cy) ** 2 < rad ** 2] = 0
+        band = (gy > 0.22 * PRE_H) & (gy < 0.26 * PRE_H)
+        alpha[band] = 100 + (gx[band] * 7 + gy[band] * 3) % 60
+        rgba = torch.stack([torch.full_like(gx, 30), torch.full_like(gx, 90),
+                            torch.full_like(gx, 160), alpha], -1)
+        write_png_adaptive(os.path.join(proj, "inputs", "masks", name),
+                           rgba.to(torch.uint8).cpu().numpy())
+        for copy in ("black_card", "black_cpu"):
+            os.makedirs(os.path.join(proj, copy), exist_ok=True)
+            shutil.copyfile(os.path.join(images, name),
+                            os.path.join(proj, copy, name))
+    return {"blurred": blurred, "calib": calib, "masked": masked,
+            "textures": textures, "filters": filters}
+
+
+def chunk_grid(centers: np.ndarray):
+    """(bbox corner, n_w, n_h) of the chunker's padded grid
+    (``preprocess.chunk.make_chunks``) over these camera centers."""
+    bbox = np.stack([centers.min(axis=0), centers.max(axis=0)])
+    bbox[0, :2] -= 0.2 * PRE_CHUNK
+    bbox[1, :2] += 0.2 * PRE_CHUNK
+    extent = bbox[1] - bbox[0]
+    padd = PRE_CHUNK - extent[:2] % PRE_CHUNK
+    bbox[0, :2] -= padd / 2
+    bbox[1, :2] += padd / 2
+    extent = bbox[1] - bbox[0]
+    return bbox[0], round(extent[0] / PRE_CHUNK), round(extent[1] / PRE_CHUNK)
+
+
+def tree_bytes(root: str) -> dict:
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def check_chunks(cc: str, info: dict) -> list:
+    """The chunker's output: chunks.txt lists every chunk written, every
+    model loads, camera counts in (PRE_MIN_CAMS, PRE_MAX_CAMS] with at
+    least one chunk trimmed to the maximum, no image record keeps points,
+    no blurred view is kept, every point lies in its chunk's box (open at
+    the grid's border) and in no other chunk. Returns the chunk names."""
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.io.meta import read_chunks_txt
+    from h3dgs_tpu_torch.preprocess.reorient import camera_centers
+
+    chunks_dir = os.path.join(cc, "chunks")
+    listed = read_chunks_txt(os.path.join(chunks_dir, "chunks.txt"))
+    names = sorted(c["name"] for c in listed)
+    assert names == sorted(d for d in os.listdir(chunks_dir)
+                           if d != "chunks.txt"), names
+    _, aligned, _ = colmap_io.read_model(
+        os.path.join(cc, "aligned", "sparse", "0"))
+    corner, n_w, n_h = chunk_grid(camera_centers(aligned))
+    counts, ids = [], []
+    for c in listed:
+        i, j = map(int, c["name"].split("_"))
+        _, imgs, pts = colmap_io.read_model(
+            os.path.join(chunks_dir, c["name"], "sparse", "0"))
+        counts.append(len(imgs))
+        assert PRE_MIN_CAMS < len(imgs) <= PRE_MAX_CAMS, (c["name"],
+                                                          len(imgs))
+        assert all(im.point3d_ids.size == 0 and im.xys.size == 0
+                   for im in imgs.values())
+        kept_blurred = info["blurred"] & {im.name for im in imgs.values()}
+        assert not kept_blurred, (c["name"], sorted(kept_blurred)[:5])
+        lo = corner[:2] + PRE_CHUNK * np.array([i, j])
+        hi = lo + PRE_CHUNK
+        np.testing.assert_allclose(c["center"][:2], (lo + hi) / 2,
+                                   rtol=1e-6, atol=1e-4)   # float32 file
+        lo = np.where([i == 0, j == 0], -1e12, lo)
+        hi = np.where([i == n_w - 1, j == n_h - 1], 1e12, hi)
+        assert pts.ids.size > 0
+        assert np.all(pts.xyz[:, :2] > lo) and np.all(pts.xyz[:, :2] < hi)
+        ids.append(pts.ids)
+    ids = np.concatenate(ids)
+    assert np.unique(ids).size == ids.size, "a point is in two chunks"
+    assert max(counts) == PRE_MAX_CAMS, counts
+    log(f"  {len(listed)} chunks of a {n_w} x {n_h} grid, cameras "
+        f"{min(counts)}-{max(counts)} (in ({PRE_MIN_CAMS}, "
+        f"{PRE_MAX_CAMS}]), {ids.size} points, each in one box; no image "
+        "record keeps points, no blurred view kept")
+    return names
+
+
+def check_depth_params(cc: str, names: list, info: dict) -> dict:
+    """depth_params.json of the aligned scene recovers each calibrated
+    view's 1/a and -b/a within PRE_DEPTH_TOL relative and has no view
+    without a map; every chunk has its file, with the views of its model
+    that have maps. Returns {file: params}."""
+    out = {}
+    path = os.path.join(cc, "aligned", "sparse", "0", "depth_params.json")
+    with open(path) as f:
+        params = json.load(f)
+    assert sorted(params) == sorted(info["calib"]), len(params)
+    worst = 0.0
+    for stem, (a, b) in info["calib"].items():
+        got = params[stem]
+        for have, want in ((got["scale"], 1 / a), (got["offset"], -b / a)):
+            worst = max(worst, abs(have - want) / abs(want))
+    assert worst <= PRE_DEPTH_TOL, worst
+    out[path] = params
+    for name in names:
+        path = os.path.join(cc, "chunks", name, "sparse", "0",
+                            "depth_params.json")
+        with open(path) as f:
+            out[path] = json.load(f)
+        assert set(out[path]) <= set(info["calib"])
+    log(f"  aligned: {len(params)} views calibrated, 1/a and -b/a within "
+        f"{worst:.3e} relative (limit {PRE_DEPTH_TOL}); "
+        f"{PRE_CAMS - len(params)} views without a map absent; "
+        f"{len(names)} chunk files")
+    return out
+
+
+def max_param_distance(a: dict, b: dict) -> float:
+    """Largest relative distance between two {file: depth params}."""
+    worst = 0.0
+    assert a.keys() == b.keys()
+    for path in a:
+        assert a[path].keys() == b[path].keys(), path
+        for view, p in a[path].items():
+            for q in ("scale", "offset"):
+                w = b[path][view][q]
+                worst = max(worst, abs(p[q] - w) / max(abs(w), 1e-9))
+    return worst
+
+
+def decoded_tree(root: str) -> dict:
+    from h3dgs_tpu_torch.io.image import read_png
+
+    return {f: read_png(os.path.join(root, f)) for f in sorted(
+        os.listdir(root))}
+
+
+def sim3_check(chunk: str, tmp: str, rng) -> dict:
+    """``transform_colmap`` of a chunk against a copy moved by a known
+    sim(3) (its points with tracks of 4 views). Holds the kept points and
+    the camera centres as ``transform_colmap`` composed them (tvec through
+    the inverse of the rotation it composed, the moved copy's times the
+    known one) to PRE_SIM3_TOL, and each written quaternion to
+    PRE_QVEC_TOL of ``rotmat2qvec`` of that rotation. Returns those
+    distances, and what reading the centres back through the written
+    quaternions gives and why (``rotmat2qvec``'s float32 quaternion, its
+    square root per component)."""
+    import dataclasses
+
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.preprocess.transform import transform_colmap
+
+    cams, imgs, pts = colmap_io.read_model(os.path.join(chunk, "sparse",
+                                                        "0"))
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    rot = colmap_io.qvec2rotmat(np.r_[np.cos(0.2), np.sin(0.2) * axis])
+    s, t = 1.7, np.array([12.0, -40.0, 3.0])
+
+    def center(im):
+        return -colmap_io.qvec2rotmat(im.qvec).T @ im.tvec
+
+    # tvec solves -R^T tvec = center for the R that qvec2rotmat reads back
+    # (a float32 quaternion is not unit), so the moved centers are the
+    # sim(3) of the chunk's to float64 rounding.
+    moved = {}
+    for k, im in imgs.items():
+        qvec = colmap_io.rotmat2qvec(colmap_io.qvec2rotmat(im.qvec) @ rot.T)
+        tvec = np.linalg.solve(colmap_io.qvec2rotmat(qvec).T,
+                               -(s * (rot @ center(im)) + t))
+        moved[k] = dataclasses.replace(im, qvec=qvec, tvec=tvec)
+    n = pts.ids.size
+    pts_new = dataclasses.replace(
+        pts, xyz=s * (pts.xyz @ rot.T) + t,
+        track_offsets=4 * np.arange(n + 1, dtype=np.int64),
+        track_image_ids=np.ones(4 * n, np.int32),
+        track_point2d_idxs=np.arange(4 * n, dtype=np.int32))
+    new_dir = os.path.join(tmp, "moved")
+    colmap_io.write_model_binary(os.path.join(new_dir, "sparse", "0"), cams,
+                                 moved, pts_new)
+    out = os.path.join(tmp, "reanchored")
+    transform_colmap(chunk, new_dir, out)
+    _, back, pts_back = colmap_io.read_model(os.path.join(out, "sparse",
+                                                          "0"))
+    assert back.keys() == imgs.keys()
+    keep = pts.error < 1.5
+    assert np.array_equal(pts_back.ids, pts.ids[keep])
+    res = {"points": float(np.abs(pts_back.xyz - pts.xyz[keep]).max()),
+           "centers": 0.0, "qvec": 0.0, "read_back": 0.0, "rot_err": 0.0,
+           "norm_err": 0.0, "implied": 0.0, "min_component": 1.0}
+    for k, im in back.items():
+        composed = colmap_io.qvec2rotmat(moved[k].qvec) @ rot
+        c = -np.linalg.solve(composed, im.tvec)
+        res["centers"] = max(res["centers"],
+                             float(np.abs(c - center(imgs[k])).max()))
+        res["qvec"] = max(res["qvec"], float(np.abs(
+            im.qvec - colmap_io.rotmat2qvec(composed)).max()))
+        read = float(np.abs(center(im) - center(imgs[k])).max())
+        rot_err = float(np.abs(colmap_io.qvec2rotmat(im.qvec)
+                               - composed).max())
+        res["norm_err"] = max(res["norm_err"],
+                              abs(float(im.qvec @ im.qvec) - 1))
+        if read > res["read_back"]:
+            res.update(read_back=read, rot_err=rot_err,
+                       implied=3 * rot_err * float(np.abs(im.tvec).max()),
+                       min_component=float(np.abs(im.qvec).min()))
+    return res
+
+
+def laplacian_rates(paths) -> dict:
+    """Images/s of the Laplacian pass over ``paths`` in host threads, as
+    ``make_chunks`` runs it: decoding alone, then decoding with the gray
+    and Laplacian variance on the card, then on the CPU."""
+    import concurrent.futures as cf
+
+    from h3dgs_tpu_torch.preprocess.chunk import laplacian_variance
+    from h3dgs_tpu_torch.preprocess.imgproc import load_bgr8
+
+    rates = {}
+    for what, fn in (("decode", load_bgr8),
+                     ("card", lambda p: laplacian_variance(p, DEVICE)),
+                     ("CPU", lambda p: laplacian_variance(p, "cpu"))):
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor() as pool:
+            n = sum(1 for _ in pool.map(fn, paths))
+        rates[what] = n / (time.perf_counter() - t0)
+    return rates
+
+
+def rate_views(images: str, info: dict, tmp: str) -> dict:
+    """The first PRE_RATE_VIEWS views two ways: the project's files (as
+    libpng filters them) and the same samples as the port's own encoder
+    writes them (filter None on every row, zlib level 6), hard-linked
+    under the same names. Returns {kind: paths}."""
+    from h3dgs_tpu_torch.io.image import read_png, write_png
+
+    none_dir = os.path.join(tmp, "views_filter_none")
+    os.makedirs(none_dir)
+    plain = []
+    for i, tex in enumerate(info["textures"]):
+        plain.append(os.path.join(none_dir, f"tex_{i:02d}.png"))
+        write_png(plain[-1], read_png(tex))
+    names = sorted(n for n in os.listdir(images))[:PRE_RATE_VIEWS]
+    for name in names:
+        os.link(plain[int(name[5:9]) % len(plain)],
+                os.path.join(none_dir, name))
+    return {"libpng's filters": [os.path.join(images, n) for n in names],
+            "filter None": [os.path.join(none_dir, n) for n in names]}
+
+
+def preprocess_phase(tmp: str, rng) -> dict:
+    """README steps 1-3 on the synthetic aligned project: ``drivers
+    chunks --skip_bundle_adjustment`` as a child process on the card,
+    ``drivers depth`` (maps present, no tool), both mask tools, each held
+    against the CPU path, then the host modules at this size. Returns each
+    step's wall time in seconds."""
+    import shutil
+    import sqlite3
+
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+    from h3dgs_tpu_torch.preprocess import (chunk, colmap_db, depth_scale,
+                                            drivers, masks, matchers,
+                                            reorient, simplify)
+
+    walls = {}
+    t_phase = time.perf_counter()
+    proj = os.path.join(tmp, "pre")
+    cc = os.path.join(proj, "camera_calibration")
+    info = write_preprocess_project(proj, rng)
+    walls["write project"] = time.perf_counter() - t_phase
+    log(f"preprocessing project written in {walls['write project']:.1f} s: "
+        f"{PRE_CAMS} views {PRE_W}x{PRE_H}, {PRE_POINTS} points, "
+        f"{len(info['blurred'])} blurred views, {len(info['calib'])} depth "
+        f"maps, {len(info['masked'])} masks; the textures' rows by filter "
+        f"(None, Sub, Up, Average, Paeth): {info['filters'].tolist()}, "
+        "each decoded back to its samples")
+
+    # 1. chunking, on the card in a child process, then on the CPU
+    cmd = [sys.executable, "-m", "h3dgs_tpu_torch.preprocess.drivers",
+           "chunks", "--project_dir", proj, "--skip_bundle_adjustment",
+           "--chunk_size", str(PRE_CHUNK), "--min_n_cams", str(PRE_MIN_CAMS),
+           "--max_n_cams", str(PRE_MAX_CAMS)]
+    t0 = time.perf_counter()
+    run_process_tree(cmd, PRE_TIMEOUT_S)
+    walls["drivers chunks (card, child process)"] = time.perf_counter() - t0
+    with open(os.path.join(cc, "aligned", "blending_dict.json")) as f:
+        blending = f.read()
+    names = check_chunks(cc, info)
+    t0 = time.perf_counter()
+    chunk.make_chunks(os.path.join(cc, "aligned"),
+                      os.path.join(cc, "rectified", "images"),
+                      os.path.join(tmp, "chunks_cpu"), PRE_CHUNK,
+                      min_n_cams=PRE_MIN_CAMS, max_n_cams=PRE_MAX_CAMS,
+                      device="cpu")
+    walls["make_chunks (CPU)"] = time.perf_counter() - t0
+    card_tree = tree_bytes(os.path.join(cc, "raw_chunks"))
+    assert card_tree == tree_bytes(os.path.join(tmp, "chunks_cpu")), \
+        "the CPU chunk tree differs from the card's"
+    with open(os.path.join(cc, "aligned", "blending_dict.json")) as f:
+        assert f.read() == blending, "blending_dict.json differs"
+    log(f"  chunks: card (child, with its start) "
+        f"{walls['drivers chunks (card, child process)']:.1f} s, CPU "
+        f"{walls['make_chunks (CPU)']:.1f} s; {len(card_tree)} files "
+        f"byte-equal, blending_dict.json equal")
+
+    images = os.path.join(cc, "rectified", "images")
+    for kind, paths in rate_views(images, info, tmp).items():
+        rates = laplacian_rates(paths)
+        log(f"  Laplacian pass, {PRE_RATE_VIEWS} views in host threads, "
+            f"{kind}: decode alone {rates['decode']:.1f} images/s, with "
+            f"the card {rates['card']:.1f}, with the CPU "
+            f"{rates['CPU']:.1f}; decoding is "
+            f"{rates['card'] / rates['decode']:.1%} of the card pass")
+
+    # 2. depth calibration of the aligned scene and every chunk
+    t0 = time.perf_counter()
+    drivers.main(["depth", "--project_dir", proj])
+    walls["drivers depth (card)"] = time.perf_counter() - t0
+    card_params = check_depth_params(cc, names, info)
+    t0 = time.perf_counter()
+    depths = os.path.join(cc, "rectified", "depths")
+    depth_scale.make_depth_scale(os.path.join(cc, "aligned"), depths,
+                                 device="cpu")
+    depth_scale.make_chunks_depth_scale(os.path.join(cc, "chunks"), depths,
+                                        device="cpu")
+    walls["depth calibration (CPU)"] = time.perf_counter() - t0
+    cpu_params = {p: json.load(open(p)) for p in card_params}
+    dist = max_param_distance(card_params, cpu_params)
+    assert dist <= PRE_CPU_TOL, dist
+    log(f"  depth: card {walls['drivers depth (card)']:.1f} s, CPU "
+        f"{walls['depth calibration (CPU)']:.1f} s, largest relative "
+        f"distance {dist:.3e} (limit {PRE_CPU_TOL})")
+
+    # 3. masks: uint8 from the RGBA masks, then black on the masked views
+    outs = {}
+    for where, dev in (("card", []), ("CPU", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        out = os.path.join(proj, f"masks_{where}")
+        masks.main(["uint8", "--in_dir", os.path.join(proj, "inputs",
+                                                      "masks"),
+                    "--out_dir", out] + dev)
+        masks.main(["black", "--images_dir",
+                    os.path.join(proj, f"black_{where.lower()}"),
+                    "--masks_dir", out] + dev)
+        walls[f"masks uint8 + black ({where})"] = time.perf_counter() - t0
+        outs[where] = (decoded_tree(out), decoded_tree(
+            os.path.join(proj, f"black_{where.lower()}")))
+    for a, b in zip(outs["card"], outs["CPU"]):
+        assert a.keys() == b.keys() and len(a) == len(info["masked"])
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    black = outs["card"][1]
+    zeroed = np.mean([float((v == 0).all(-1).mean()) for v in black.values()])
+    assert 0.01 < zeroed < 0.9, zeroed
+    log(f"  masks: card {walls['masks uint8 + black (card)']:.1f} s, CPU "
+        f"{walls['masks uint8 + black (CPU)']:.1f} s; {len(black)} masks "
+        f"and masked views bit-equal; {zeroed:.1%} of pixels blacked")
+
+    # 4. host modules at this size
+    first = os.path.join(cc, "chunks", names[0])
+    host = os.path.join(tmp, "host")
+    steps = [
+        ("auto_reorient", lambda: reorient.auto_reorient(
+            os.path.join(cc, "aligned", "sparse", "0"),
+            os.path.join(host, "reoriented"))),
+        ("simplify_images", lambda: simplify.simplify_images(
+            os.path.join(host, "simplify"))),
+        ("make_distance_matcher_file", lambda:
+            matchers.make_distance_matcher_file(
+                os.path.join(first, "sparse", "0"),
+                os.path.join(host, "matching.txt"), n_neighbours=200)),
+        ("fill_database", lambda: colmap_db.fill_database(
+            os.path.join(host, "database.db"),
+            os.path.join(first, "sparse", "0"))),
+        ("transform_colmap", lambda: sim3_check(first, host, rng)),
+    ]
+    os.makedirs(os.path.join(host, "simplify"))
+    shutil.copyfile(os.path.join(cc, "aligned", "sparse", "0", "images.bin"),
+                    os.path.join(host, "simplify", "images.bin"))
+    results = {}
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        results[name] = fn()
+        walls[name] = time.perf_counter() - t0
+    rot, scale = results["auto_reorient"]
+    assert abs(np.linalg.det(rot) - 1) < 1e-9 and np.isfinite(scale) and \
+        scale > 0, (rot, scale)
+    assert results["simplify_images"] == PRE_CAMS, results["simplify_images"]
+    _, chunk_imgs, _ = colmap_io.read_model(os.path.join(first, "sparse",
+                                                         "0"))
+    n_pairs = results["make_distance_matcher_file"]
+    assert 0 < n_pairs <= len(chunk_imgs) * 199, n_pairs
+    conn = sqlite3.connect(os.path.join(host, "database.db"))
+    n_rows = conn.execute("SELECT COUNT(*) FROM images").fetchone()[0]
+    conn.close()
+    assert n_rows == len(chunk_imgs), n_rows
+    sim3 = results["transform_colmap"]
+    assert sim3["points"] <= PRE_SIM3_TOL and \
+        sim3["centers"] <= PRE_SIM3_TOL and sim3["qvec"] <= PRE_QVEC_TOL, sim3
+    log(f"  host modules: auto_reorient {walls['auto_reorient']:.1f} s "
+        f"(upscale {scale:.4f}), simplify_images "
+        f"{walls['simplify_images']:.1f} s ({PRE_CAMS} kept), "
+        f"make_distance_matcher_file(200) on chunk {names[0]} "
+        f"{walls['make_distance_matcher_file']:.1f} s ({n_pairs} pairs), "
+        f"fill_database {walls['fill_database']:.1f} s ({n_rows} images), "
+        f"transform_colmap {walls['transform_colmap']:.1f} s (sim(3) "
+        f"recovered: points within {sim3['points']:.3e}, camera centres "
+        f"as composed within {sim3['centers']:.3e} (limit {PRE_SIM3_TOL}),"
+        f" quaternions within {sim3['qvec']:.3e} of the composed "
+        f"rotation's (limit {PRE_QVEC_TOL:.3e}))")
+    log(f"  centres read back through the written quaternions: within "
+        f"{sim3['read_back']:.3e}; largest |q.q - 1| {sim3['norm_err']:.3e}"
+        f"; at the worst camera R(q) differs from the composed rotation "
+        f"by {sim3['rot_err']:.3e} (smallest |q component| "
+        f"{sim3['min_component']:.3e}), 3 x that x |tvec| = "
+        f"{sim3['implied']:.3e}")
+    walls["phase total"] = time.perf_counter() - t_phase
+    log("preprocessing phase: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()))
+    return walls
+
+
 def build_kernels() -> None:
     """Every kernel from its source, one nvcc each, started together; the
     compiler's register / spill report."""
@@ -2479,6 +3137,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         orchestrate_phase(tmp, rng, look_at_camera)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, pre_counts = counted(preprocess_phase, tmp, rng)
+    log(f"preprocessing path, in process: kernel launches {pre_counts} "
+        "(its image work is plain torch)")
     dp_views = DP_VIEWS * (DP_ITERS + DP_FUSED_ITERS + DP_POST_ITERS)
     views = (TRAIN_ITERS + FUSED_ITERS + POST_ITERS + POST_RESUMED
              + POST_FUSED_ITERS + dp_views)

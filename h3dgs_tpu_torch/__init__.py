@@ -15,6 +15,8 @@ blend forward (CUDA kernel ``csrc/blend_fwd.cu``) -> uint8 frame ->
 fused SSIM loss ``csrc/ssim.cu``); hierarchy creation and post-training
 (``cli.hierarchy_creator``, ``cli.train_post``); the merger
 (``cli.hierarchy_merger``), evaluation (``cli.render_hierarchy``,
-``eval.metrics``) and the orchestrator (``cli.full_train``). Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+``eval.metrics``), the orchestrator (``cli.full_train``) and
+preprocessing (``preprocess.drivers`` and its modules, with the image work
+on the device in place of OpenCV). Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """

@@ -7,11 +7,20 @@ samples, gray / gray+alpha / RGB / RGBA, non-interlaced, all five
 scanline filter types on read. Other formats
 (JPEG) go through PIL when it is importable; otherwise ``read_image``
 raises an error naming the file and its format.
+
+Undoing the scanline filters is a byte-serial loop (Average and Paeth
+read the reconstructed left neighbour). It runs in C++
+(``csrc/png_unfilter.cpp``, built at first use by ``native.build`` with
+the host's compiler; the call releases the GIL, so decoding threads run
+in parallel), and in numpy (``unfilter_plain``, the plain version) only
+where no C++ compiler is found. A failed build raises.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
+import threading
 import zlib
 
 import numpy as np
@@ -19,6 +28,12 @@ import numpy as np
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG color type -> samples per pixel (palette images are not read)
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+UNFILTER_SOURCE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc",
+    "png_unfilter.cpp")
+# The C++ routine once loaded; False where no C++ compiler is found.
+_NATIVE = None
+_NATIVE_LOCK = threading.Lock()
 
 
 def _paeth(a, b, c):
@@ -29,11 +44,54 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
+def _native_unfilter():
+    """The C++ unfilter (a ctypes function), built and loaded at first
+    use, or ``None`` where no C++ compiler is found."""
+    global _NATIVE
+    with _NATIVE_LOCK:
+        if _NATIVE is None:
+            from .. import native
+            if native.compiler() is None:
+                _NATIVE = False
+            else:
+                lib = ctypes.CDLL(native.build(UNFILTER_SOURCE,
+                                               "libh3dgs_png", openmp=False))
+                fn = lib.h3dgs_png_unfilter
+                fn.restype = ctypes.c_int64
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_void_p]
+                _NATIVE = fn
+    return _NATIVE or None
+
+
 def _unfilter(data: np.ndarray, height: int, width: int,
               bpp: int) -> np.ndarray:
     """Undo the per-scanline filters. ``data``: the inflated stream,
     ``height`` rows of 1 filter byte + width * bpp bytes. Returns
     [height, width * bpp] uint8."""
+    fn = _native_unfilter()
+    if fn is None:
+        return unfilter_plain(data, height, width, bpp)
+    row_bytes = width * bpp
+    if data.size != height * (1 + row_bytes):
+        raise ValueError(f"PNG data of {data.size} bytes, want "
+                         f"{height} rows of {1 + row_bytes}")
+    data = np.ascontiguousarray(data, np.uint8)
+    out = np.empty((height, row_bytes), np.uint8)
+    bad = fn(data.ctypes.data, height, row_bytes, bpp, out.ctypes.data)
+    if bad == -2:
+        raise ValueError(f"PNG pixels of {bpp} bytes are not read")
+    if bad >= 0:
+        raise ValueError(
+            f"bad PNG filter type {int(data[bad * (1 + row_bytes)])}")
+    return out
+
+
+def unfilter_plain(data: np.ndarray, height: int, width: int,
+                   bpp: int) -> np.ndarray:
+    """``_unfilter`` in numpy: a vector operation per row where only
+    None / Sub / Up occur, else a sweep over anti-diagonals."""
     rows = data.reshape(height, 1 + width * bpp)
     ftype = rows[:, 0]
     filt = rows[:, 1:].astype(np.int32)
@@ -181,3 +239,20 @@ def read_image(path: str) -> np.ndarray:
             "PIL (install Pillow or convert the dataset to PNG)") from None
     with Image.open(path) as im:
         return np.asarray(im)
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """Write ``img`` (as ``write_png`` takes it, RGB order) in the format
+    the path's extension names, with ``cv2.imwrite``'s defaults: PNG by
+    this module at zlib level 1, other formats (JPEG at quality 95)
+    through PIL, raising without it."""
+    if path.lower().endswith(".png"):
+        write_png(path, img, level=1)
+        return
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{path}: only PNG is written without PIL (install Pillow or "
+            "convert the dataset to PNG)") from None
+    Image.fromarray(np.ascontiguousarray(img)).save(path, quality=95)

@@ -19,6 +19,9 @@ falls back to numpy behind the caller's back.
 
 The library's OpenMP loops run in the process that already holds torch's
 OpenMP runtime; ``torch.set_num_threads`` caps both.
+
+``build`` compiles the PNG unfilter of ``io/image.py``
+(``csrc/png_unfilter.cpp``) the same way, without OpenMP.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import platform
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Optional
 
 import numpy as np
@@ -89,32 +93,35 @@ def _host_cpu() -> bytes:
     return key.encode()
 
 
-def library_path(cxx: str, flags: list) -> str:
+def library_path(cxx: str, flags: list, source: Optional[str] = None,
+                 stem: str = "libh3dgs_native") -> str:
     digest = hashlib.sha256(" ".join([cxx] + flags).encode())
     digest.update(_host_cpu())
-    with open(SOURCE, "rb") as f:
+    with open(source or SOURCE, "rb") as f:
         digest.update(f.read())
-    return os.path.join(BUILD_DIR,
-                        f"libh3dgs_native_{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the library unless it is built already; returns its path.
-    Raises when no compiler is found or the build fails."""
+def build(source: Optional[str] = None, stem: str = "libh3dgs_native",
+          openmp: bool = True) -> str:
+    """Compile ``source`` (default: the hierarchy tools' ``SOURCE``) into
+    ``BUILD_DIR/<stem>_<key>.so`` unless it is built already; returns its
+    path. Raises when no compiler is found or the build fails."""
+    source = source or SOURCE
     cxx = compiler()
     if cxx is None:
         raise RuntimeError("no C++ compiler found (set CXX); the numpy "
                            "backend needs none")
-    flags = CXX_FLAGS + _openmp_flag(cxx)
-    out = library_path(cxx, flags)
+    flags = CXX_FLAGS + (_openmp_flag(cxx) if openmp else [])
+    out = library_path(cxx, flags, source, stem)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([cxx, *flags, "-o", tmp, SOURCE],
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([cxx, *flags, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError("native library build failed:\n"
+        raise RuntimeError(f"native library build failed ({source}):\n"
                            + proc.stdout + proc.stderr)
     # Atomic rename: a concurrent process never loads a partial file.
     os.replace(tmp, out)

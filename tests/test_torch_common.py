@@ -167,7 +167,7 @@ def test_import_guard_catches(source, caught):
 
 def test_entry_points_need_cuda_or_a_device(tmp_path, monkeypatch):
     """Without CUDA and without an explicit device, the entry points raise
-    instead of falling back to the CPU."""
+    instead of falling back to the CPU (preprocessing included)."""
     from h3dgs_tpu_torch.cli import render_hierarchy
     from h3dgs_tpu_torch.eval import metrics
     from h3dgs_tpu_torch.model.state import from_arrays
@@ -204,6 +204,60 @@ def test_entry_points_need_cuda_or_a_device(tmp_path, monkeypatch):
     r = service.HierarchyRenderer(path, sh_degree=1, device="cpu")
     img, _ = r.render(cam, tau=3.0)
     assert img.shape == (48, 64, 3)
+    preprocessing_needs_cuda_or_a_device(tmp_path)
+
+
+def preprocessing_needs_cuda_or_a_device(tmp_path):
+    """The preprocessing steps that do array work (chunking, depth
+    calibration, both mask tools, ``drivers chunks``), on a tiny project:
+    they raise without CUDA and without a device, and run on the CPU when
+    asked."""
+    from h3dgs_tpu_torch.io import colmap as C
+    from h3dgs_tpu_torch.io.image import write_png
+    from h3dgs_tpu_torch.preprocess import chunk, depth_scale, drivers, masks
+
+    proj = tmp_path / "project"
+    aligned = proj / "camera_calibration" / "aligned"
+    xyz = np.c_[np.linspace(0, 9, 80), np.zeros(80), np.full(80, 5.0)]
+    pts = C.ColmapPoints3D(
+        ids=np.arange(1, 81), xyz=xyz, rgb=np.zeros((80, 3), np.uint8),
+        error=np.zeros(80), track_offsets=np.zeros(81, np.int64),
+        track_image_ids=np.zeros(0, np.int32),
+        track_point2d_idxs=np.zeros(0, np.int32))
+    images = {i + 1: C.ColmapImage(
+        i + 1, np.array([1.0, 0, 0, 0]), np.array([-float(i), 0, 0]), 1,
+        f"v{i}.png", np.full((80, 2), 8.0), np.arange(1, 81))
+        for i in range(10)}
+    cams = {1: C.ColmapCamera(1, "PINHOLE", 16, 12,
+                              np.array([10.0, 10.0, 8.0, 6.0]))}
+    C.write_model_binary(str(aligned / "sparse" / "0"), cams, images, pts)
+    for d in ("images", "masks"):
+        write_png(str(tmp_path / d / "v0.png"),
+                  np.full((12, 16, 4), 200, np.uint8))
+    base, out = str(aligned), str(tmp_path / "chunks")
+    calls = [
+        lambda **kw: chunk.make_chunks(base, "", out, chunk_size=100.0,
+                                       lapla_thresh=0, min_n_cams=1, **kw),
+        lambda **kw: depth_scale.make_depth_scale(base, str(tmp_path), **kw),
+        lambda **kw: masks.make_masks_uint8(str(tmp_path / "masks"),
+                                            str(tmp_path / "m8"), **kw),
+        lambda **kw: masks.black_mask_images(str(tmp_path / "images"),
+                                             str(tmp_path / "masks"), **kw),
+        lambda **kw: drivers.main(
+            ["chunks", "--project_dir", str(proj), "--lapla_thresh", "0",
+             "--min_n_cams", "1", "--skip_bundle_adjustment"]
+            + (["--device", kw["device"]] if kw else [])),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert len(chunk.make_chunks(base, "", out, lapla_thresh=0,
+                                 min_n_cams=1, device="cpu")) == 1
+    for call in calls[1:]:
+        call(device="cpu")
+    assert os.path.exists(proj / "camera_calibration" / "chunks" / "0_0"
+                          / "sparse" / "0" / "points3D.bin")
+    assert os.path.exists(tmp_path / "m8" / "v0.png")
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):

@@ -657,3 +657,45 @@ def test_render_hierarchy_on_card(tmp_path, monkeypatch):
         assert abs(g["ssim"] - w["ssim"]) <= 1e-4, (g, w)
         assert abs(g["lpips"] - w["lpips"]) <= 1e-4 * w["lpips"], (g, w)
     assert card[30.0]["cut_mean"] < card[0.0]["cut_mean"]
+
+
+@pytest.mark.cuda
+def test_preprocess_imgproc_on_card_matches_cpu():
+    """Each ``preprocess.imgproc`` function and the chunk counts on the card
+    equal the same call on the CPU: integer results bit for bit, the
+    Laplacian variance within 1e-12 relative, the bilinear samples within
+    1e-6 (FMA contraction may round the lerps differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from h3dgs_tpu_torch.preprocess import chunk, imgproc
+
+    rng = np.random.default_rng(0)
+    bgr = torch.as_tensor(rng.integers(0, 256, (900, 1600, 3)),
+                          dtype=torch.uint8)
+    gray = imgproc.gray_bgr2gray(bgr)
+    assert torch.equal(imgproc.gray_bgr2gray(bgr.cuda()).cpu(), gray)
+    lap_cpu = imgproc.laplacian_var(gray)
+    lap_card = imgproc.laplacian_var(gray.cuda())
+    assert abs(lap_card - lap_cpu) <= 1e-12 * lap_cpu
+    binary = (gray > 100).to(torch.uint8) * 255
+    for k in (0, 4, 5):
+        assert torch.equal(imgproc.erode(binary.cuda(), k).cpu(),
+                           imgproc.erode(binary, k))
+    for h, w in ((450, 800), (1037, 1911)):
+        assert torch.equal(imgproc.resize_nearest(binary.cuda(), h, w).cpu(),
+                           imgproc.resize_nearest(binary, h, w))
+    img = torch.as_tensor(rng.uniform(0, 1, (450, 800)), dtype=torch.float32)
+    x = torch.as_tensor(rng.uniform(-2, 802, 200_000), dtype=torch.float32)
+    y = torch.as_tensor(rng.uniform(-2, 452, 200_000), dtype=torch.float32)
+    got = imgproc.sample_bilinear_replicate(img.cuda(), x.cuda(), y.cuda())
+    want = imgproc.sample_bilinear_replicate(img, x, y)
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+
+    pts = torch.as_tensor(np.round(rng.uniform(-50, 150, (400_000, 3)), 1),
+                          dtype=torch.float64)
+    owner = torch.as_tensor(rng.integers(0, 300, 400_000))
+    boxes = [(np.array([-1e12, 0.0, -1e12]), np.array([50.0, 100.0, 1e12])),
+             (np.array([50.0, -1e12, -1e12]), np.array([1e12, 1e12, 1e12]))]
+    want = chunk.visible_counts(pts, owner, 300, boxes)
+    got = chunk.visible_counts(pts.cuda(), owner.cuda(), 300, boxes)
+    assert np.array_equal(got, want) and want.sum() > 0

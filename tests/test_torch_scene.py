@@ -71,16 +71,13 @@ def test_png_codec_matches_pil(tmp_path, mode, shape, dtype):
         np.testing.assert_array_equal(cv2.imread(q, -1), a)
 
 
-def test_png_all_filter_types(tmp_path):
-    """Every scanline filter (None, Sub, Up, Average, Paeth), mixed within
-    one 16-bit RGB image, decodes exactly."""
-    rng = np.random.default_rng(3)
-    h, w, bpp = 23, 19, 6
-    img = rng.integers(0, 65536, (h, w, 3)).astype(">u2")
-    raw = img.view(np.uint8).reshape(h, w * bpp).astype(np.int32)
+def _filtered_png(raw: np.ndarray, width: int, bpp: int, depth: int,
+                  ctype: int, types) -> bytes:
+    """PNG bytes of the [h, width * bpp] sample bytes ``raw``, row r
+    filtered with ``types[r]`` (0-4; others are written as they are)."""
+    raw = raw.astype(np.int32)
     rows = []
-    for r in range(h):
-        ft = r % 5
+    for r, ft in enumerate(types):
         cur = raw[r]
         prev = raw[r - 1] if r else np.zeros_like(cur)
         left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
@@ -90,23 +87,76 @@ def test_png_all_filter_types(tmp_path):
             pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - ul)
             pred = np.where((pa <= pb) & (pa <= pc), left,
                             np.where(pb <= pc, prev, ul))
-        else:
+        elif ft < 4:
             pred = [0 * cur, left, prev, (left + prev) >> 1][ft]
+        else:
+            pred = 0 * cur
         rows.append(np.concatenate([[ft], (cur - pred) & 255]))
     data = np.stack(rows).astype(np.uint8).tobytes()
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
+    return (timage.PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, len(types),
+                                         depth, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
+
+
+def test_png_all_filter_types(tmp_path):
+    """Every scanline filter (None, Sub, Up, Average, Paeth), mixed within
+    one 16-bit RGB image, decodes exactly."""
+    rng = np.random.default_rng(3)
+    h, w, bpp = 23, 19, 6
+    img = rng.integers(0, 65536, (h, w, 3)).astype(">u2")
+    raw = img.view(np.uint8).reshape(h, w * bpp)
     p = str(tmp_path / "filters.png")
     with open(p, "wb") as f:
-        f.write(timage.PNG_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0,
-                                             0))
-                + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
+        f.write(_filtered_png(raw, w, bpp, 16, 2, [r % 5 for r in range(h)]))
     np.testing.assert_array_equal(timage.read_png(p), img.astype(np.uint16))
     np.testing.assert_array_equal(cv2.imread(p, -1)[..., ::-1],
                                   img.astype(np.uint16))
+
+
+@pytest.mark.parametrize("ctype,depth", [(0, 8), (4, 8), (2, 8), (6, 8),
+                                         (0, 16), (4, 16), (2, 16), (6, 16)])
+def test_png_unfilter_native_and_plain(tmp_path, monkeypatch, ctype, depth):
+    """The C++ unfilter and the numpy one (where no compiler is found)
+    decode every filter type at every pixel size (1-8 bytes) to OpenCV's
+    samples, on smooth rows (Paeth picks each neighbour) and noise; a bad
+    filter type raises in both."""
+    chans = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
+    bpp = chans * depth // 8
+    h, w = 40, 33
+    rng = np.random.default_rng(ctype * 100 + depth)
+    dtype = np.uint8 if depth == 8 else np.dtype(">u2")
+    img = rng.integers(0, 1 << depth, (h, w, chans)).astype(dtype)
+    ramp = np.linspace(0, (1 << depth) - 1, w)[:, None]
+    img[: h // 2] = (ramp + 7 * np.arange(h // 2)[:, None, None]).clip(
+        0, (1 << depth) - 1).astype(dtype)
+    raw = np.ascontiguousarray(img).view(np.uint8).reshape(h, w * bpp)
+    body = _filtered_png(raw, w, bpp, depth, ctype,
+                         rng.integers(0, 5, h).tolist())
+    p = str(tmp_path / "f.png")
+    with open(p, "wb") as f:
+        f.write(body)
+    want = cv2.imread(p, cv2.IMREAD_UNCHANGED)
+    if want.ndim == 3:      # OpenCV's BGR(A) -> RGB(A)
+        want = np.concatenate([want[..., 2::-1], want[..., 3:]], -1)
+    if ctype == 4:          # gray+alpha: OpenCV expands to BGRA
+        want = want[..., 2:]
+    broken = _filtered_png(raw, w, bpp, depth, ctype, [0] * (h - 1) + [5])
+    native = timage.decode_png(body)
+    assert timage._native_unfilter() is not None
+    np.testing.assert_array_equal(native, want.astype(native.dtype))
+    with pytest.raises(ValueError, match="bad PNG filter type 5"):
+        timage.decode_png(broken)
+    monkeypatch.setattr(timage, "_NATIVE", None)
+    monkeypatch.setattr("h3dgs_tpu_torch.native.compiler", lambda: None)
+    assert timage._native_unfilter() is None
+    np.testing.assert_array_equal(timage.decode_png(body), native)
+    with pytest.raises(ValueError, match="bad PNG filter type 5"):
+        timage.decode_png(broken)
 
 
 def test_read_image_without_pil_names_the_file(tmp_path, monkeypatch):
