@@ -39,7 +39,11 @@ views at 1600x900 over a 300 m square and 1.5M ground points, chunked by
 ``python -m h3dgs_tpu_torch.preprocess.drivers chunks`` on the card,
 calibrated by ``drivers depth`` against 240 known inverse-depth maps,
 masked by both mask tools, each held against the CPU path, then the host
-modules at that size.
+modules at that size. JPEG: the committed fixtures of
+``tests/data/torch_jpeg`` (the card's machine has no PIL or OpenCV) decoded
+by the port's own decoder against their manifest's digests, the training
+chunk trained on its 24 views read from the 1600x900 JPEG fixture and
+again from its PNG twin, and the host's decode rates.
 
 Phases, each failing the run with its traceback:
   1. card name and power limit (nvidia-smi); fails without CUDA;
@@ -58,6 +62,14 @@ Phases, each failing the run with its traceback:
   7. the training path, counted the same way: ``train_single.main`` for 80
      iterations; loss finite and falling, artifacts written and read back,
      locked skybox rows unchanged; step time and its per-stage split;
+     then JPEG: every fixture decoded by the C++ decoder to its PIL digest
+     (and OpenCV's, through ``load_bgr8``, where the EXIF orientation
+     turns it; the plain version bit-equal below 300x300; the progressive
+     one refused), ``train_single`` counted for 30 iterations on the 24
+     views as hard links to the 1600x900 fixture (named ``.jpg`` in
+     images.bin; losses finite, K1 and K2 once per step) and on its PNG
+     twin (medians side by side), and the decode rates at 1600x900: one
+     thread, ``load_view`` in 8 threads and the Laplacian pass;
   8. a 4-view dp step's gradients against the mean of 4 single-view
      gradients; the busy share of a 4-view step; the trained state saved
      and loaded in the ``.pt`` format; the fused-loss training path,
@@ -234,6 +246,17 @@ PRE_MAX_CAMS = 200
 PRE_TIMEOUT_S = 600
 # Views timed on their own for the Laplacian pass's rates.
 PRE_RATE_VIEWS = 120
+# The JPEG phase: the committed fixtures (``tests/data/torch_jpeg``, made
+# with PIL and OpenCV by ``scripts/torch_make_jpeg_fixtures.py``; the card's
+# machine has neither) and their manifest of PIL's and OpenCV's digests;
+# the training chunk's views as hard links to the 1600x900 fixture.
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "torch_jpeg")
+JPEG_VIEW = "view_420_1600x900.jpg"
+JPEG_PLAIN_MAX = 300 * 300      # the plain decoder runs below this area
+JPEG_ITERS = 30
+JPEG_DECODE_REPS = 10
+JPEG_LOADER_VIEWS = 120         # load_view calls per rate, in 8 threads
 # The calibration recovers 1/a and -b/a up to the maps' 16-bit rounding
 # (1.5e-5 against values spread over ~0.3) and the replicated border
 # column; the CPU path's samples differ from the card's by FMA rounding
@@ -1563,13 +1586,178 @@ def training_phase(tmp: str, rng, look_at_camera):
     assert counts_f["ssim"] >= FUSED_ITERS, counts_f
     del rec_f
     torch.cuda.empty_cache()
+    jpeg_counts = jpeg_phase(tmp, src, base)
+    torch.cuda.empty_cache()
     dp_counts = dp_train_phase(tmp, base, one_view_ms)
     torch.cuda.empty_cache()
     post_counts = post_phase(tmp, out, src, sc_dir, look_at_camera)
     torch.cuda.empty_cache()
     eval_counts = eval_phase(tmp, out, src, sc_dir, look_at_camera)
-    return ({"train": counts, "fused": counts_f, **dp_counts,
-             **post_counts, **eval_counts}, k2_inputs)
+    return ({"train": counts, "fused": counts_f, **jpeg_counts,
+             **dp_counts, **post_counts, **eval_counts}, k2_inputs)
+
+
+def jpeg_exactness() -> None:
+    """Every committed JPEG fixture through the port's C++ decoder against
+    the manifest: PIL's digest, OpenCV's through ``load_bgr8`` where its
+    read differs (EXIF orientation), and the plain version bit-equal below
+    JPEG_PLAIN_MAX pixels. The progressive fixture must be refused."""
+    import hashlib
+
+    from h3dgs_tpu_torch.io import jpeg
+    from h3dgs_tpu_torch.preprocess.imgproc import load_bgr8
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    assert jpeg._native_decoder() is not None, "no C++ JPEG decoder here"
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    n_cv2 = n_plain = n_refused = 0
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(JPEG_DIR, name)
+        if entry["progressive"]:
+            try:
+                jpeg.read_jpeg(path)
+            except jpeg.UnsupportedJpeg as e:
+                n_refused += 1
+                log(f"  {name}: refused ({e})")
+                continue
+            raise AssertionError(f"{name}: a progressive JPEG was decoded")
+        got = jpeg.read_jpeg(path)
+        assert list(got.shape) == entry["shape"], (name, got.shape)
+        assert digest(got) == entry["pil_sha256"], f"{name} != PIL's"
+        if "cv2_bgr_sha256" in entry:
+            assert digest(load_bgr8(path)) == entry["cv2_bgr_sha256"], \
+                f"{name}: load_bgr8 != cv2.imread"
+            n_cv2 += 1
+        if got.shape[0] * got.shape[1] < JPEG_PLAIN_MAX:
+            with open(path, "rb") as f:
+                plain = jpeg.decode_jpeg_plain(f.read(), name)
+            assert np.array_equal(plain, got), f"{name}: plain != C++"
+            n_plain += 1
+    log(f"JPEG exactness: {len(manifest) - n_refused} fixtures decoded by "
+        f"the C++ decoder to PIL's digests, {n_cv2} to OpenCV's default "
+        f"read through load_bgr8 (EXIF orientation), {n_plain} also by the "
+        f"plain version bit for bit, {n_refused} progressive refused")
+
+
+def linked_chunk(root: str, src: str, image: str, ext: str) -> None:
+    """The training chunk ``src`` again under ``root``: its cameras, points,
+    depths and depth_params linked, and every view's image a hard link to
+    ``image``, named ``<view>.<ext>`` in a rewritten images.bin."""
+    import dataclasses
+
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+
+    sparse, src_sparse = (os.path.join(d, "sparse", "0") for d in (root, src))
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(root, "images"))
+    for f in ("cameras.bin", "points3D.bin", "depth_params.json"):
+        os.link(os.path.join(src_sparse, f), os.path.join(sparse, f))
+    os.symlink(os.path.join(src, "depths"), os.path.join(root, "depths"))
+    imgs = colmap_io.read_images_binary(os.path.join(src_sparse,
+                                                     "images.bin"))
+    renamed = {}
+    for k, im in imgs.items():
+        name = os.path.splitext(im.name)[0] + "." + ext
+        os.link(image, os.path.join(root, "images", name))
+        renamed[k] = dataclasses.replace(im, name=name)
+    colmap_io.write_images_binary(os.path.join(sparse, "images.bin"),
+                                  renamed)
+
+
+def decode_rates(jpeg_path: str, png_path: str, infos, tmp: str) -> dict:
+    """Host decode rates at 1600x900: one thread (median ms of
+    JPEG_DECODE_REPS), ``load_view`` views/s in 8 threads (as the view
+    stream runs it), and the Laplacian pass over PRE_RATE_VIEWS hard
+    links (``laplacian_rates``), for the JPEG and its PNG twin."""
+    import concurrent.futures as cf
+
+    from h3dgs_tpu_torch.io.image import read_png
+    from h3dgs_tpu_torch.io.jpeg import read_jpeg
+    from h3dgs_tpu_torch.scene.loader import load_view
+
+    out = {}
+    for kind, path, read in (("JPEG", jpeg_path, read_jpeg),
+                             ("PNG", png_path, read_png)):
+        ms = []
+        for _ in range(JPEG_DECODE_REPS):
+            t0 = time.perf_counter()
+            read(path)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        views = [infos[kind][i % len(infos[kind])]
+                 for i in range(JPEG_LOADER_VIEWS)]
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(max_workers=8) as pool:
+            n = sum(1 for _ in pool.map(lambda i: load_view(i, -1), views))
+        loader = n / (time.perf_counter() - t0)
+        links = os.path.join(tmp, f"lap_{kind}")
+        os.makedirs(links)
+        ext = os.path.splitext(path)[1]
+        paths = [os.path.join(links, f"v{i:04d}{ext}")
+                 for i in range(PRE_RATE_VIEWS)]
+        for p in paths:
+            os.link(path, p)
+        out[kind] = {"decode_ms": float(np.median(ms)),
+                     "loader_views_s": loader,
+                     "laplacian": laplacian_rates(paths)}
+    return out
+
+
+def jpeg_phase(tmp: str, src: str, base) -> dict:
+    """JPEG datasets on the card's machine: the fixtures' exactness
+    (``jpeg_exactness``); ``train_single`` for JPEG_ITERS iterations on the
+    training chunk with its 24 views read from the 1600x900 fixture
+    (counted: losses finite, K1 and K2 once per step), and the same run
+    on its PNG twin (the decoded pixels as libpng filters them); the
+    host's decode rates. Returns both runs' launch counts."""
+    from h3dgs_tpu_torch.io.jpeg import read_jpeg
+
+    t_phase = time.perf_counter()
+    jpeg_exactness()
+    view = os.path.join(JPEG_DIR, JPEG_VIEW)
+    twin = os.path.join(tmp, "jpeg_twin.png")
+    filters = write_png_adaptive(twin, read_jpeg(view))
+    counts, medians, infos = {}, {}, {}
+    for kind, image, ext in (("JPEG", view, "jpg"), ("PNG", twin, "png")):
+        root = os.path.join(tmp, f"chunk_{ext}")
+        linked_chunk(root, src, image, ext)
+        argv = ["-s", root] + base[2:] + [
+            "-m", os.path.join(tmp, f"model_{ext}"), "--iterations",
+            str(JPEG_ITERS)]
+        rec, counts[f"{kind} views"] = counted(run_train_cli, argv)
+        c = counts[f"{kind} views"]
+        photo = rec["photo"]
+        assert len(photo) == JPEG_ITERS, len(photo)
+        assert all(math.isfinite(x) for x in photo + rec["depth"]), photo
+        assert c["blend_fwd"] >= JPEG_ITERS and \
+            c["blend_bwd"] >= JPEG_ITERS, c
+        medians[kind] = float(np.median(steady_ms(rec)[0]))
+        infos[kind] = rec["scene"].info.train_cameras
+        names = {os.path.basename(i.image_path) for i in infos[kind]}
+        assert all(n.endswith("." + ext) for n in names), names
+        log(f"train_single on {TRAIN_VIEWS} {kind} views ({JPEG_ITERS} "
+            f"iterations): photo loss first {photo[0]:.5f}, last "
+            f"{photo[-1]:.5f}, median step {medians[kind]:.3f} ms "
+            f"(CUDA events, iterations 6-{JPEG_ITERS}); kernel launches {c}")
+        del rec
+    log(f"JPEG views against their PNG twins (rows by filter None, Sub, Up,"
+        f" Average, Paeth: {filters.tolist()}), one call: median step "
+        f"{medians['JPEG']:.3f} ms against {medians['PNG']:.3f} "
+        f"({medians['JPEG'] / medians['PNG']:.3f}x)")
+    rates = decode_rates(view, twin, infos, tmp)
+    for kind, r in rates.items():
+        lap = r["laplacian"]
+        log(f"  {kind} 1600x900 on the host ({card_line()}): one thread "
+            f"{r['decode_ms']:.2f} ms a decode (median of "
+            f"{JPEG_DECODE_REPS}); load_view in 8 threads "
+            f"{r['loader_views_s']:.1f} views/s ({JPEG_LOADER_VIEWS} "
+            f"views); Laplacian pass over {PRE_RATE_VIEWS} hard links: "
+            f"decode alone {lap['decode']:.1f} images/s, with the card "
+            f"{lap['card']:.1f}, with the CPU {lap['CPU']:.1f}")
+    log(f"JPEG phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def dp_train_phase(tmp: str, base, one_view_ms: float):
@@ -3142,8 +3330,9 @@ def main() -> int:
     log(f"preprocessing path, in process: kernel launches {pre_counts} "
         "(its image work is plain torch)")
     dp_views = DP_VIEWS * (DP_ITERS + DP_FUSED_ITERS + DP_POST_ITERS)
-    views = (TRAIN_ITERS + FUSED_ITERS + POST_ITERS + POST_RESUMED
-             + POST_FUSED_ITERS + dp_views)
+    jpeg_views = 2 * JPEG_ITERS         # JPEG views and their PNG twins
+    views = (TRAIN_ITERS + FUSED_ITERS + jpeg_views + POST_ITERS
+             + POST_RESUMED + POST_FUSED_ITERS + dp_views)
     fused_views = FUSED_ITERS + POST_FUSED_ITERS + DP_VIEWS * DP_FUSED_ITERS
     eval_frames = TRAIN_VIEWS * len(EVAL_TAUS)
     paths = {"serve": launches, **band_counts, **web_counts, **train_counts}
@@ -3152,7 +3341,8 @@ def main() -> int:
     log(f"kernel launches over the {len(paths)} paths: {total} ({frames} "
         f"frames, {n_bands} bands, {N_WEB} web frames, {views} training "
         f"views ({dp_views} of them {DP_VIEWS} a step, {fused_views} with "
-        f"the fused loss), {eval_frames} evaluation frames, 1 render call)")
+        f"the fused loss, {jpeg_views} read from JPEG files and their PNG "
+        f"twins), {eval_frames} evaluation frames, 1 render call)")
     assert total["blend_fwd"] >= (frames + n_bands + N_WEB + views
                                   + eval_frames + 1), total
     assert total["blend_bwd"] >= views, total

@@ -1,4 +1,4 @@
-"""GPS tags from a JPEG's EXIF block, without PIL.
+"""GPS tags and the orientation from a JPEG's EXIF block, without PIL.
 
 The JAX package reads GPS positions through PIL's ``_getexif``; the card's
 machine has no PIL. This reader follows PIL's rules wherever they decide
@@ -14,23 +14,25 @@ what comes back:
 - the GPS IFD is the one at IFD0's tag 0x8825 when that tag holds one
   integer.
 
-Only IFD0's 0x8825 and the GPS IFD's tags 1-4 (latitude and longitude
-with their references) are decoded, as PIL presents them: ASCII as
-``str`` without its trailing NUL, BYTE and UNDEFINED as ``bytes``,
-rationals as floats (num / den; NaN for a zero denominator), other
-numbers as ints, each a tuple when it has more than one value. Where PIL
-would warn of corrupt EXIF data (a header that is not ``II`` / ``MM``, an
-IFD cut short), this reader warns naming the file and reads on as PIL
-does; the JAX package's blanket ``except`` returns no GPS where PIL
-raises (a bad header), and so does this reader, without an ``except``.
+Only IFD0's 0x8825 and 0x0112 (Orientation) and the GPS IFD's tags
+1-4 (latitude and longitude with their references) are decoded, as PIL
+presents them: ASCII as ``str`` without its trailing NUL, BYTE and
+UNDEFINED as ``bytes``, rationals as floats (num / den; NaN for a zero
+denominator), other numbers as ints, each a tuple when it has more than
+one value. Where PIL would warn of corrupt EXIF data (a header that is
+not ``II`` / ``MM``, an IFD cut short), this reader warns naming the file
+and reads on as PIL does; the JAX package's blanket ``except`` returns
+no GPS where PIL raises (a bad header), and so does this reader, without
+an ``except``.
 """
 from __future__ import annotations
 
 import struct
 import warnings
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 GPS_IFD_TAG = 0x8825
+ORIENTATION_TAG = 0x0112
 # GPSLatitudeRef, GPSLatitude, GPSLongitudeRef, GPSLongitude
 GPS_TAGS = (1, 2, 3, 4)
 # TIFF type -> (struct code, bytes per value): the types PIL loads
@@ -103,10 +105,10 @@ def _ifd(tiff: bytes, offset: int, order: str, wanted, path: str) -> dict:
     return out
 
 
-def read_gps_ifd(path: str) -> Optional[Dict[int, object]]:
-    """GPS tags 1-4 of a JPEG file ({tag: value}, possibly empty), or
-    ``None`` when the file is not a JPEG or has no readable EXIF block
-    or no GPS IFD."""
+def _tiff(path: str) -> Optional[Tuple[bytes, str, int]]:
+    """The EXIF block of a JPEG file, its byte order (a struct prefix) and
+    IFD0's offset; ``None`` when the file is not a JPEG or has no readable
+    EXIF block."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(b"\xff\xd8"):
@@ -120,7 +122,32 @@ def read_gps_ifd(path: str) -> Optional[Dict[int, object]]:
                       "not a TIFF header")
         return None
     (ifd0,) = struct.unpack_from(order + "I", tiff, 4)
+    return tiff, order, ifd0
+
+
+def read_gps_ifd(path: str) -> Optional[Dict[int, object]]:
+    """GPS tags 1-4 of a JPEG file ({tag: value}, possibly empty), or
+    ``None`` when the file is not a JPEG or has no readable EXIF block
+    or no GPS IFD."""
+    found = _tiff(path)
+    if found is None:
+        return None
+    tiff, order, ifd0 = found
     gps_at = _ifd(tiff, ifd0, order, (GPS_IFD_TAG,), path).get(GPS_IFD_TAG)
     if type(gps_at) is not int:
         return None
     return _ifd(tiff, gps_at, order, GPS_TAGS, path)
+
+
+def orientation(path: str) -> int:
+    """IFD0's Orientation tag (0x0112) of a JPEG file as it is stored
+    (1-8 in a valid file: how the stored rows map to the upright view);
+    1 when the file is not a JPEG or has no readable EXIF block or no
+    such tag holding one integer."""
+    found = _tiff(path)
+    if found is None:
+        return 1
+    tiff, order, ifd0 = found
+    value = _ifd(tiff, ifd0, order, (ORIENTATION_TAG,),
+                 path).get(ORIENTATION_TAG)
+    return value if type(value) is int else 1

@@ -1,12 +1,15 @@
-"""Image files: a PNG codec of its own (zlib + numpy), and PIL for other
-formats where it is installed.
+"""Image files: a PNG codec of its own (zlib + numpy), the JPEG decoder
+of ``io/jpeg.py``, and PIL for other formats where it is installed.
 
 The JAX package decodes with PIL and OpenCV; the port's loader reads every
 image through ``read_image``. PNG is read and written by this module: 8- and 16-bit
 samples, gray / gray+alpha / RGB / RGBA, non-interlaced, all five
-scanline filter types on read. Other formats
-(JPEG) go through PIL when it is importable; otherwise ``read_image``
-raises an error naming the file and its format.
+scanline filter types on read. JPEG is read by ``io/jpeg.py``: baseline
+and extended-sequential Huffman JPEG, 8-bit, gray or three components,
+bit-equal to libjpeg-turbo's decode (PIL's and OpenCV's), never through
+PIL. A JPEG of another kind (progressive, arithmetic, 12-bit, CMYK) and
+other formats go through PIL when it is importable; otherwise
+``read_image`` raises an error naming the file and what it holds.
 
 Undoing the scanline filters is a byte-serial loop (Average and Paeth
 read the reconstructed left neighbour). It runs in C++
@@ -24,6 +27,8 @@ import threading
 import zlib
 
 import numpy as np
+
+from .jpeg import UnsupportedJpeg, read_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG color type -> samples per pixel (palette images are not read)
@@ -213,8 +218,6 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
 
 
 def _format(head: bytes) -> str:
-    if head.startswith(b"\xff\xd8"):
-        return "JPEG"
     if head[:4] in (b"II*\x00", b"MM\x00*"):
         return "TIFF"
     if head[:2] == b"BM":
@@ -226,17 +229,25 @@ def _format(head: bytes) -> str:
 
 def read_image(path: str) -> np.ndarray:
     """Decode an image file to a numpy array ([H, W] or [H, W, C], uint8 or
-    uint16). PNG is decoded by this module; other formats need PIL."""
+    uint16). PNG and JPEG (the kinds ``io/jpeg.py`` reads) are decoded by
+    the port; other formats and JPEG kinds need PIL."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
         return read_png(path)
+    if head.startswith(b"\xff\xd8"):
+        try:
+            return read_jpeg(path)
+        except UnsupportedJpeg as e:
+            unsupported = e
+    else:
+        unsupported = ValueError(
+            f"{path}: {_format(head)} image, and only PNG and JPEG are read "
+            "without PIL (install Pillow or convert the dataset to PNG)")
     try:
         from PIL import Image
     except ImportError:
-        raise ValueError(
-            f"{path}: {_format(head)} image, and only PNG is read without "
-            "PIL (install Pillow or convert the dataset to PNG)") from None
+        raise unsupported from None
     with Image.open(path) as im:
         return np.asarray(im)
 

@@ -2,37 +2,69 @@
 package (``h3dgs_tpu/preprocess/{chunk,depth_scale,masks}.py``).
 
 The card's machine has neither OpenCV nor PIL, so the port decodes through
-its own PNG codec (``io/image.py``) and computes with torch on any device.
-Each function keeps the contract of the OpenCV call it replaces, down to
-the integer arithmetic, so that a decision taken on its result (a blurred
-view, a mask pixel) is the one the JAX package takes.
+its own PNG codec (``io/image.py``) and JPEG decoder (``io/jpeg.py``) and
+computes with torch on any device. Each function keeps the contract of the
+OpenCV call it replaces, down to the integer arithmetic, so that a decision
+taken on its result (a blurred view, a mask pixel) is the one the JAX
+package takes.
 
 Loaders return numpy arrays in OpenCV's channel order (BGR, BGRA), so an
 index that the JAX code takes on ``cv2.imread``'s array takes the same
 channel here. A missing file gives ``None``, as ``cv2.imread`` does; a file
 that cannot be decoded raises with its name (``cv2.imread`` would give
 ``None`` and the caller would read it as missing). PNG follows OpenCV's
-libpng decoder exactly; another format goes through PIL where it is
+libpng decoder exactly and JPEG its libjpeg-turbo decoder (the kinds
+``io/jpeg.py`` reads), including OpenCV's EXIF rotation: ``imread`` turns a
+JPEG upright by its Orientation tag in every mode but
+``IMREAD_UNCHANGED``. Another format goes through PIL where it is
 installed, and its pixels may differ from OpenCV's decoder.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..io.exif import orientation
 from ..io.image import read_image
+from ..io.jpeg import UnsupportedJpeg, read_jpeg
 
 
-def _decode(path: str) -> Optional[np.ndarray]:
-    """``read_image`` ([H, W] or [H, W, C] in RGB order), or ``None`` for a
-    missing file."""
+def _decode(path: str, gray: bool = False
+            ) -> Tuple[Optional[np.ndarray], bool]:
+    """(``read_image`` ([H, W] or [H, W, C] in RGB order), or ``None`` for a
+    missing file; whether the file is a JPEG). With ``gray``, a JPEG is
+    decoded to gray as libjpeg does for OpenCV (``io/jpeg.py``)."""
     if not os.path.isfile(path):
-        return None
-    return read_image(path)
+        return None, False
+    with open(path, "rb") as f:
+        jpeg = f.read(2) == b"\xff\xd8"
+    if jpeg and gray:
+        try:
+            return read_jpeg(path, gray=True), True
+        except UnsupportedJpeg:
+            pass                        # read_image: through PIL, or raise
+    return read_image(path), jpeg
+
+
+def _upright(img: np.ndarray, path: str) -> np.ndarray:
+    """OpenCV's EXIF transform of a JPEG: orientations 5-8 transpose the
+    image, then 2 and 6 mirror its columns, 4 and 8 its rows, 3 and 7
+    both; other values leave it as stored."""
+    o = orientation(path)
+    if not 1 <= o <= 8:
+        return img
+    if o >= 5:
+        img = img.swapaxes(0, 1)
+    flip = (o - 1) % 4
+    if flip in (1, 2):
+        img = img[:, ::-1]
+    if flip in (2, 3):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
 
 
 def _to8(img: np.ndarray) -> np.ndarray:
@@ -44,8 +76,9 @@ def _to8(img: np.ndarray) -> np.ndarray:
 def load_unchanged(path: str) -> Optional[np.ndarray]:
     """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: the file's depth (uint8
     or uint16); gray stays [H, W]; gray+alpha becomes 4 channels (gray,
-    gray, gray, alpha); RGB becomes BGR and RGBA becomes BGRA."""
-    img = _decode(path)
+    gray, gray, alpha); RGB becomes BGR and RGBA becomes BGRA. A JPEG is
+    not turned by its EXIF orientation."""
+    img, _ = _decode(path)
     if img is None or img.ndim == 2:
         return img
     order = {2: [0, 0, 0, 1], 3: [2, 1, 0], 4: [2, 1, 0, 3]}[img.shape[2]]
@@ -55,10 +88,13 @@ def load_unchanged(path: str) -> Optional[np.ndarray]:
 def load_bgr8(path: str) -> Optional[np.ndarray]:
     """``cv2.imread(path)`` (``IMREAD_COLOR``): [H, W, 3] uint8 in BGR
     order. 16-bit samples keep their high byte, alpha is dropped, gray is
-    repeated into the three channels."""
-    img = _decode(path)
+    repeated into the three channels; a JPEG is turned upright by its EXIF
+    orientation."""
+    img, jpeg = _decode(path)
     if img is None:
         return None
+    if jpeg:
+        img = _upright(img, path)
     img = _to8(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -72,10 +108,14 @@ def load_gray8(path: str) -> Optional[np.ndarray]:
     reduced by libpng's ``png_set_rgb_to_gray(0.299, 0.587)`` at the file's
     depth: ``(9797 R + 19234 G + 3737 B) >> 15`` on 8-bit samples and the
     same plus 16384 before the shift on 16-bit ones (then the high byte);
-    a pixel with R = G = B keeps its value. Alpha is dropped."""
-    img = _decode(path)
+    a pixel with R = G = B keeps its value. Alpha is dropped. A JPEG is
+    reduced by libjpeg instead (its Y plane; ``io/jpeg.py``) and turned
+    upright by its EXIF orientation."""
+    img, jpeg = _decode(path, gray=True)
     if img is None:
         return None
+    if jpeg:
+        img = _upright(img, path)
     if img.ndim == 3 and img.shape[2] >= 3:
         r, g, b = (img[..., i].astype(np.int64) for i in range(3))
         rnd = 16384 if img.dtype == np.uint16 else 0

@@ -4,8 +4,9 @@
 A small thread pool decodes views ahead while the card trains on the
 previous one; pixel preprocessing (resolution policy, alpha masking,
 exposure-eval half-masking, mono-depth scaling + reliability) follows the
-reference. Images are read with ``io/image.py`` (PNG without any
-library, other formats through PIL) and resized on the host with
+reference. Images are read with ``io/image.py`` (PNG and baseline JPEG
+without any library, as stored: no EXIF rotation, as PIL gives the JAX
+loader; other formats through PIL) and resized on the host with
 ``torch.nn.functional.interpolate(mode="area")``: equal to OpenCV's
 INTER_AREA, which the JAX loader uses, at integer downscale factors; at
 other factors the two differ by up to a few 1/255 per value.

@@ -30,6 +30,7 @@ import torch
 
 from ..hierarchy import cut as cut_lib
 from ..hierarchy.io import read_hier
+from ..io.image import write_png
 from ..model.init import state_from_hierarchy
 from ..ops.rasterize import RasterizeConfig
 from ..parallel import sharding as shard_lib
@@ -187,8 +188,8 @@ def orbit(renderer: HierarchyRenderer, out_dir: str, n_frames: int = 60,
           radius: float = 50.0, height: float = -10.0,
           center=(0.0, 0.0, 0.0), tau: float = 6.0,
           width: int = 1200, height_px: int = 675) -> None:
-    """Offline fly-through: circle the scene center, save PNG frames."""
-    from PIL import Image
+    """Offline fly-through: circle the scene center, save PNG frames
+    (the port's own PNG writer)."""
     os.makedirs(out_dir, exist_ok=True)
     for i, a in enumerate(np.linspace(0, 2 * math.pi, n_frames,
                                       endpoint=False)):
@@ -197,8 +198,7 @@ def orbit(renderer: HierarchyRenderer, out_dir: str, n_frames: int = 60,
         cam = look_at_camera(eye=eye, target=center, fovx=1.2,
                              width=width, height=height_px)
         img, stats = renderer.render(cam, tau)
-        Image.fromarray(img).save(
-            os.path.join(out_dir, f"frame_{i:04d}.png"))
+        write_png(os.path.join(out_dir, f"frame_{i:04d}.png"), img)
         print(f"frame {i}: cut={stats['cut_size']}", flush=True)
 
 

@@ -699,3 +699,36 @@ def test_preprocess_imgproc_on_card_matches_cpu():
     want = chunk.visible_counts(pts, owner, 300, boxes)
     got = chunk.visible_counts(pts.cuda(), owner.cuda(), 300, boxes)
     assert np.array_equal(got, want) and want.sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["view_420_1600x900.jpg", "gray_97x61.jpg",
+                                  "adobe_rgb_97x61.jpg",
+                                  "cv2_411_rst_257x129.jpg"])
+def test_jpeg_views_reach_the_card(name):
+    """The loader's views of committed JPEG fixtures (decoded by the
+    port's own decoder) reach the card equal to their CPU bytes, as the
+    training loop moves them (``encode_view`` + ``batch_to_device``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+
+    from h3dgs_tpu_torch.io.jpeg import read_jpeg
+    from h3dgs_tpu_torch.scene.dataset import CameraInfo
+    from h3dgs_tpu_torch.scene.loader import load_view
+    from h3dgs_tpu_torch.train.step import batch_to_device, encode_view
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_jpeg", name)
+    h, w = read_jpeg(path).shape[:2]
+    info = CameraInfo(uid=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]),
+                      fovx=1.0, fovy=1.0 * h / w, primx=0.5, primy=0.5,
+                      width=w, height=h, image_path=path, image_name=name)
+    view = encode_view(load_view(info, -1))
+    cpu = batch_to_device(view, "cpu")
+    card = batch_to_device(view, "cuda")
+    torch.cuda.synchronize()
+    assert cpu.gt_image.shape == (3, h, w) and cpu.gt_image.max() > 0
+    for f in ("gt_image", "alpha_mask", "invdepth", "depth_mask"):
+        assert getattr(card, f).device.type == "cuda"
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f

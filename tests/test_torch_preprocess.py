@@ -247,11 +247,12 @@ def test_resize_nearest_matches_cv2(src, dst):
 
 
 def test_undecodable_image_raises(tmp_path, monkeypatch):
-    """A JPEG with PIL unimportable raises with the file's name, from the
-    loaders, the Laplacian and the depth map reader: it is not read as a
-    missing file (which gives 0.0 / None)."""
+    """A JPEG the port does not read (progressive), with PIL unimportable,
+    raises with the file's name, from the loaders, the Laplacian and the
+    depth map reader: it is not read as a missing file (which gives 0.0 /
+    None)."""
     path = str(tmp_path / "view.jpg")
-    Image.new("RGB", (16, 12), (40, 80, 120)).save(path)
+    Image.new("RGB", (16, 12), (40, 80, 120)).save(path, progressive=True)
     monkeypatch.setitem(sys.modules, "PIL", None)
     for fn in (imgproc.load_bgr8, imgproc.load_unchanged,
                imgproc.load_gray8):
@@ -848,8 +849,9 @@ def test_drivers_run_exits_on_failure(tmp_path, capsys):
 
 def test_port_imports_no_opencv():
     """No module of the port, nor chip_smoke.py, imports cv2; the
-    preprocessing modules and the EXIF reader import no PIL either (PIL
-    stays behind ``io/image.py``)."""
+    preprocessing modules, the EXIF reader, the JPEG decoder and
+    chip_smoke.py import no PIL either (PIL stays behind
+    ``io/image.py``)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT_DIR):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
@@ -866,8 +868,10 @@ def test_port_imports_no_opencv():
             for name in names:
                 root_name = name.split(".")[0]
                 if root_name == "cv2" or (root_name == "PIL" and (
-                        path.startswith(no_pil)
-                        or path.endswith(os.path.join("io", "exif.py")))):
+                        path.startswith(no_pil) or path.endswith((
+                            os.path.join("io", "exif.py"),
+                            os.path.join("io", "jpeg.py"),
+                            "chip_smoke.py")))):
                     bad.append(f"{os.path.relpath(path, REPO)}:"
                                f"{node.lineno} imports {name}")
     assert len(files) > 20 and not bad, bad

@@ -160,8 +160,12 @@ def test_png_unfilter_native_and_plain(tmp_path, monkeypatch, ctype, depth):
 
 
 def test_read_image_without_pil_names_the_file(tmp_path, monkeypatch):
+    """Without PIL a baseline JPEG is read by the port's own decoder, and a
+    progressive one (which only PIL reads) raises naming the file."""
     p = str(tmp_path / "photo.jpg")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(p)
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(p, progressive=True)
+    q = str(tmp_path / "base.jpg")
+    Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(q)
     np.testing.assert_array_equal(timage.read_image(p).shape, (8, 8, 3))
     import builtins
     real_import = builtins.__import__
@@ -171,8 +175,10 @@ def test_read_image_without_pil_names_the_file(tmp_path, monkeypatch):
             raise ImportError(name)
         return real_import(name, *a, **kw)
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(ValueError, match=r"photo\.jpg: JPEG"):
+    with pytest.raises(ValueError, match=r"photo\.jpg: progressive JPEG"):
         timage.read_image(p)
+    np.testing.assert_array_equal(timage.read_image(q),
+                                  np.full((8, 8, 3), 90, np.uint8))
 
 
 # ---------------------------------------------------- files across both ---

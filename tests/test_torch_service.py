@@ -7,6 +7,7 @@ from __future__ import annotations
 import json
 import os
 import socket
+import sys
 import threading
 
 import jax
@@ -202,6 +203,34 @@ def test_render_post_parity(hier):
     d = np.abs(np_(to["render"]) - np.asarray(jo["render"]))
     assert (d <= 1e-4).mean() >= 0.999, d.max()
     assert int(to["n_duplicates"]) == int(jo["n_duplicates"])
+
+
+def test_orbit_writes_png_without_pil(hier, tmp_path, monkeypatch):
+    """``orbit`` writes its frames with the port's PNG writer: with PIL
+    unimportable, each frame file decodes to ``renderer.render``'s
+    pixels."""
+    from h3dgs_tpu_torch.io.image import read_png
+
+    path, h = hier
+    r = tservice.HierarchyRenderer(path, budget=h.n_nodes, sh_degree=1,
+                                   device="cpu")
+    rendered = []
+    render = r.render
+
+    def recorded(cam, tau):
+        img, stats = render(cam, tau)
+        rendered.append(img)
+        return img, stats
+    monkeypatch.setattr(r, "render", recorded)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    out = str(tmp_path / "frames")
+    tservice.orbit(r, out, n_frames=3, radius=12.0, width=64, height_px=36)
+    assert sorted(os.listdir(out)) == [f"frame_{i:04d}.png"
+                                       for i in range(3)]
+    assert len(rendered) == 3 and max(f.max() for f in rendered) > 0
+    for i, img in enumerate(rendered):
+        np.testing.assert_array_equal(
+            read_png(os.path.join(out, f"frame_{i:04d}.png")), img)
 
 
 def test_main_orbit_on_cpu(hier, tmp_path):
