@@ -39,11 +39,14 @@ views at 1600x900 over a 300 m square and 1.5M ground points, chunked by
 ``python -m h3dgs_tpu_torch.preprocess.drivers chunks`` on the card,
 calibrated by ``drivers depth`` against 240 known inverse-depth maps,
 masked by both mask tools, each held against the CPU path, then the host
-modules at that size. JPEG: the committed fixtures of
-``tests/data/torch_jpeg`` (the card's machine has no PIL or OpenCV) decoded
-by the port's own decoder against their manifest's digests, the training
-chunk trained on its 24 views read from the 1600x900 JPEG fixture and
-again from its PNG twin, and the host's decode rates.
+modules at that size, and ``masks black`` on JPEG copies of masked views.
+JPEG: the committed fixtures of ``tests/data/torch_jpeg`` (the card's
+machine has no PIL or OpenCV; baseline and progressive) decoded by the
+port's own decoder and re-encoded by its own encoder against their
+manifest's digests, the training chunk trained on its 24 views read from
+the 1600x900 JPEG fixture, from its progressive twin and from its PNG
+twin, and the host's decode and encode rates; the browser viewer's
+frames are the port's JPEGs.
 
 Phases, each failing the run with its traceback:
   1. card name and power limit (nvidia-smi); fails without CUDA;
@@ -57,19 +60,24 @@ Phases, each failing the run with its traceback:
      blend kernel, total) at each tau; then, counted, the tau-0 cut in 2
      and 4 pixel bands (``render_banded`` on repeated ``cuda`` devices:
      bit-equal to the full frame, K1 once per band) and 3 ``/frame``
-     requests to ``WebViewer`` (PNGs equal to ``renderer.render``);
+     requests to ``WebViewer`` (JPEGs byte-equal to ``encode_jpeg`` of
+     ``renderer.render`` at q 85 and one other q, decoded back; the
+     encode's one-thread ms at 1080p);
   6. write the training chunk;
   7. the training path, counted the same way: ``train_single.main`` for 80
      iterations; loss finite and falling, artifacts written and read back,
      locked skybox rows unchanged; step time and its per-stage split;
-     then JPEG: every fixture decoded by the C++ decoder to its PIL digest
-     (and OpenCV's, through ``load_bgr8``, where the EXIF orientation
-     turns it; the plain version bit-equal below 300x300; the progressive
-     one refused), ``train_single`` counted for 30 iterations on the 24
-     views as hard links to the 1600x900 fixture (named ``.jpg`` in
-     images.bin; losses finite, K1 and K2 once per step) and on its PNG
-     twin (medians side by side), and the decode rates at 1600x900: one
-     thread, ``load_view`` in 8 threads and the Laplacian pass;
+     then JPEG: every fixture, baseline and progressive, decoded by the
+     C++ decoder to its PIL digest (and OpenCV's, through ``load_bgr8``,
+     where the EXIF orientation turns it; the plain version bit-equal
+     below 300x300; the one with unfinished progressive scans refused)
+     and re-encoded at 7 qualities to PIL's bytes' digests,
+     ``train_single`` counted for 30 iterations on the 24 views as hard
+     links to the 1600x900 fixture (named ``.jpg`` in images.bin; losses
+     finite, K1 and K2 once per step), on its progressive twin (the same
+     pixels) and on its PNG twin (medians side by side), and the decode
+     rates at 1600x900: one thread, ``load_view`` in 8 threads and the
+     Laplacian pass; the encode's one-thread ms at 1600x900;
   8. a 4-view dp step's gradients against the mean of 4 single-view
      gradients; the busy share of a 4-view step; the trained state saved
      and loaded in the ``.pt`` format; the fused-loss training path,
@@ -97,8 +105,9 @@ Phases, each failing the run with its traceback:
      and ``make_chunks(device="cpu")`` byte-equal), ``drivers depth``
      (every view with a map recovers its 1/a and -b/a, the CPU path
      within 1e-6), ``masks uint8`` and ``masks black`` bit-equal to the
-     CPU path, and ``auto_reorient``, ``simplify_images``, the distance
-     matcher, ``fill_database`` and ``transform_colmap`` against a known
+     CPU path, ``masks black`` on 8 JPEG views byte-equal to
+     ``encode_jpeg`` of the masked pixels at 95, and ``auto_reorient``,
+     ``simplify_images``, the distance matcher, ``fill_database`` and ``transform_colmap`` against a known
      sim(3) (points and camera centres within 1e-9, each quaternion the
      composed rotation's), the Laplacian pass's images/s on the
      project's files and on the same samples with filter None, each
@@ -142,6 +151,7 @@ N_SERVE = 3
 # and the browser viewer's frames.
 BAND_COUNTS = (2, 4)
 N_WEB = 3
+WEB_OTHER_Q = 60                # the quality of the last web frame
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
@@ -240,6 +250,7 @@ PRE_TEXTURES, PRE_BLURRED = 24, 4
 PRE_TEST = 20
 PRE_DEPTH_VIEWS = 240
 PRE_MASKS = 200
+PRE_JPEG_MASKED = 8             # masked views also given as JPEG copies
 PRE_CHUNK = 100.0
 PRE_MIN_CAMS = 100
 PRE_MAX_CAMS = 200
@@ -253,6 +264,7 @@ PRE_RATE_VIEWS = 120
 JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "data", "torch_jpeg")
 JPEG_VIEW = "view_420_1600x900.jpg"
+JPEG_PROGRESSIVE_VIEW = "view_420_1600x900_progressive.jpg"
 JPEG_PLAIN_MAX = 300 * 300      # the plain decoder runs below this area
 JPEG_ITERS = 30
 JPEG_DECODE_REPS = 10
@@ -506,19 +518,24 @@ def bands_phase(renderer, cams):
 def web_phase(renderer, look_at_camera):
     """``WebViewer`` over the serving renderer: ``/info``, then N_WEB
     ``/frame`` requests at WIDTH x HEIGHT from distinct poses, counted
-    around each request; every PNG decoded equal to ``renderer.render`` of
-    the same camera (rendered after the request, outside the counts);
-    milliseconds per frame (render + PNG encode, client clock). Returns
-    the launch counts of the requests."""
+    around each request, at the viewer's default quality (85) but the last
+    at WEB_OTHER_Q; every reply ``image/jpeg`` and byte-equal to
+    ``encode_jpeg(renderer.render(cam), q)`` of the same camera (rendered
+    after the request, outside the counts), decoded back by the port's
+    decoder (PSNR against the render); milliseconds per frame (render +
+    JPEG encode + transfer, client clock) and the one-thread encode of the
+    last render at q 85 and 95. Returns the launch counts of the
+    requests."""
     import http.client
 
-    from h3dgs_tpu_torch.io.image import decode_png
+    from h3dgs_tpu_torch.io.jpeg import decode_jpeg
+    from h3dgs_tpu_torch.io.jpeg_encode import encode_jpeg
     from h3dgs_tpu_torch.ops import kernels
     from h3dgs_tpu_torch.viewer.web import WebViewer
 
     viewer = WebViewer(renderer, port=0, tau=SERVE_TAU).start()
     counts = {k: 0 for k in kernels.LAUNCHES}
-    ms = []
+    ms, psnr, sizes = [], [], []
     try:
         conn = http.client.HTTPConnection("127.0.0.1", viewer.port,
                                           timeout=120)
@@ -528,10 +545,11 @@ def web_phase(renderer, look_at_camera):
         c = info["center"]
         for i in range(N_WEB):
             a = 2 * np.pi * i / N_WEB
+            q = WEB_OTHER_Q if i == N_WEB - 1 else None
             eye = (c[0] + 5 * np.sin(a), c[1] - 2.0, c[2] - 5 * np.cos(a))
             url = (f"/frame?ex={eye[0]}&ey={eye[1]}&ez={eye[2]}&tx={c[0]}"
                    f"&ty={c[1]}&tz={c[2]}&fovx=1.2&w={WIDTH}&h={HEIGHT}"
-                   f"&tau={SERVE_TAU}")
+                   f"&tau={SERVE_TAU}" + (f"&q={q}" if q else ""))
             kernels.reset_launches()
             t0 = time.perf_counter()
             conn.request("GET", url)
@@ -542,23 +560,54 @@ def web_phase(renderer, look_at_camera):
             for k, v in kernels.LAUNCHES.items():
                 counts[k] += v
             assert resp.status == 200, body[:200]
-            img = decode_png(body)
+            assert resp.getheader("Content-Type") == "image/jpeg"
             cam = look_at_camera(eye=eye, target=tuple(c), fovx=1.2,
                                  width=WIDTH, height=HEIGHT)
             want, st = renderer.render(cam, SERVE_TAU)
-            assert np.array_equal(img, want), "web frame != render()"
+            assert body == encode_jpeg(want, q or 85), \
+                "web frame != encode_jpeg(render())"
             assert int(resp.getheader("X-Cut-Size")) == st["cut_size"]
             assert want.max() > 0
+            img = decode_jpeg(body)
+            assert img.shape == want.shape
+            mse = np.mean((img.astype(np.float64) - want) ** 2)
+            psnr.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+            sizes.append(len(body))
         conn.close()
     finally:
         viewer.stop()
     assert counts["blend_fwd"] == N_WEB, counts
-    log(f"web viewer: /info, then {N_WEB} /frame requests at {WIDTH}x"
-        f"{HEIGHT} each decoded equal to renderer.render; "
-        f"{', '.join(f'{x:.1f}' for x in ms)} ms a frame (render + PNG "
-        f"encode + transfer, client clock; {len(body) / 1e6:.2f} MB the "
-        f"last); kernel launches {counts}")
+    enc = encode_ms(want)
+    log(f"web viewer ({card_line()}): /info, then {N_WEB} /frame requests "
+        f"at {WIDTH}x{HEIGHT}, image/jpeg at q 85 (the last at "
+        f"{WEB_OTHER_Q}), each "
+        f"byte-equal to encode_jpeg(renderer.render) and decoded back at "
+        f"PSNR {', '.join(f'{x:.2f}' for x in psnr)} dB; "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms a frame (render + JPEG "
+        f"encode + transfer, client clock; PNG frames took 171.4-216.0 ms, "
+        f"PERF.md); {', '.join(f'{x / 1e6:.3f}' for x in sizes)} "
+        f"MB; kernel launches {counts}")
+    log(f"  JPEG encode of a {WIDTH}x{HEIGHT} frame on the host in one "
+        f"thread ({card_line()}): q 85 {enc[85]:.2f} ms, q 95 "
+        f"{enc[95]:.2f} ms (median of {JPEG_DECODE_REPS}, in turns)")
     return {"web": counts}
+
+
+def encode_ms(img, qualities=(85, 95)) -> dict:
+    """quality -> median ms of JPEG_DECODE_REPS one-thread ``encode_jpeg``
+    calls, the qualities taken in turns (after one call each), so that
+    neither is measured first throughout."""
+    from h3dgs_tpu_torch.io.jpeg_encode import encode_jpeg
+
+    ts = {q: [] for q in qualities}
+    for q in qualities:
+        encode_jpeg(img, q)
+    for _ in range(JPEG_DECODE_REPS):
+        for q in qualities:
+            t0 = time.perf_counter()
+            encode_jpeg(img, q)
+            ts[q].append(1e3 * (time.perf_counter() - t0))
+    return {q: float(np.median(t)) for q, t in ts.items()}
 
 
 def stage_times(renderer, cams, tau):
@@ -1599,47 +1648,69 @@ def training_phase(tmp: str, rng, look_at_camera):
 
 def jpeg_exactness() -> None:
     """Every committed JPEG fixture through the port's C++ decoder against
-    the manifest: PIL's digest, OpenCV's through ``load_bgr8`` where its
-    read differs (EXIF orientation), and the plain version bit-equal below
-    JPEG_PLAIN_MAX pixels. The progressive fixture must be refused."""
+    the manifest: PIL's digest (baseline and progressive), OpenCV's
+    through ``load_bgr8`` where its read differs (EXIF orientation), and
+    the plain version bit-equal below JPEG_PLAIN_MAX pixels; the one with
+    unfinished progressive scans must be refused. Then every decoded
+    fixture encoded at each quality of the manifest by the C++ encoder
+    (and the plain one below JPEG_PLAIN_MAX) to the SHA-256 of PIL's
+    bytes."""
     import hashlib
 
     from h3dgs_tpu_torch.io import jpeg
+    from h3dgs_tpu_torch.io import jpeg_encode
     from h3dgs_tpu_torch.preprocess.imgproc import load_bgr8
 
     def digest(a):
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
     assert jpeg._native_decoder() is not None, "no C++ JPEG decoder here"
+    assert jpeg_encode._native_encoder() is not None, \
+        "no C++ JPEG encoder here"
     with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
         manifest = json.load(f)
-    n_cv2 = n_plain = n_refused = 0
+    n_cv2 = n_plain = n_refused = n_prog = n_enc = n_enc_plain = 0
     for name, entry in sorted(manifest.items()):
         path = os.path.join(JPEG_DIR, name)
-        if entry["progressive"]:
+        if entry["refused"]:
             try:
                 jpeg.read_jpeg(path)
             except jpeg.UnsupportedJpeg as e:
                 n_refused += 1
                 log(f"  {name}: refused ({e})")
                 continue
-            raise AssertionError(f"{name}: a progressive JPEG was decoded")
+            raise AssertionError(f"{name}: an unfinished progressive JPEG "
+                                 "was decoded")
         got = jpeg.read_jpeg(path)
         assert list(got.shape) == entry["shape"], (name, got.shape)
         assert digest(got) == entry["pil_sha256"], f"{name} != PIL's"
+        n_prog += entry["progressive"]
         if "cv2_bgr_sha256" in entry:
             assert digest(load_bgr8(path)) == entry["cv2_bgr_sha256"], \
                 f"{name}: load_bgr8 != cv2.imread"
             n_cv2 += 1
-        if got.shape[0] * got.shape[1] < JPEG_PLAIN_MAX:
+        small = got.shape[0] * got.shape[1] < JPEG_PLAIN_MAX
+        if small:
             with open(path, "rb") as f:
                 plain = jpeg.decode_jpeg_plain(f.read(), name)
             assert np.array_equal(plain, got), f"{name}: plain != C++"
             n_plain += 1
-    log(f"JPEG exactness: {len(manifest) - n_refused} fixtures decoded by "
-        f"the C++ decoder to PIL's digests, {n_cv2} to OpenCV's default "
-        f"read through load_bgr8 (EXIF orientation), {n_plain} also by the "
-        f"plain version bit for bit, {n_refused} progressive refused")
+        for q, sha in entry["encoded_sha256"].items():
+            body = jpeg_encode.encode_jpeg(got, int(q))
+            assert hashlib.sha256(body).hexdigest() == sha, \
+                f"{name}: encode_jpeg at q {q} != PIL's bytes"
+            n_enc += 1
+            if small:
+                assert jpeg_encode.encode_jpeg_plain(got, int(q)) == body, \
+                    f"{name}: encode_jpeg_plain at q {q} != C++"
+                n_enc_plain += 1
+    log(f"JPEG exactness: {len(manifest) - n_refused} fixtures "
+        f"({n_prog} progressive) decoded by the C++ decoder to PIL's "
+        f"digests, {n_cv2} to OpenCV's default read through load_bgr8 "
+        f"(EXIF orientation), {n_plain} also by the plain version bit for "
+        f"bit, {n_refused} with unfinished progressive scans refused; "
+        f"{n_enc} encodes by the C++ encoder at PIL's bytes' digests, "
+        f"{n_enc_plain} also by the plain version byte for byte")
 
 
 def linked_chunk(root: str, src: str, image: str, ext: str) -> None:
@@ -1667,36 +1738,33 @@ def linked_chunk(root: str, src: str, image: str, ext: str) -> None:
                                   renamed)
 
 
-def decode_rates(jpeg_path: str, png_path: str, infos, tmp: str) -> dict:
-    """Host decode rates at 1600x900: one thread (median ms of
-    JPEG_DECODE_REPS), ``load_view`` views/s in 8 threads (as the view
-    stream runs it), and the Laplacian pass over PRE_RATE_VIEWS hard
-    links (``laplacian_rates``), for the JPEG and its PNG twin."""
+def decode_rates(files, infos, tmp: str) -> dict:
+    """Host decode rates at 1600x900 of each (kind, path, reader) of
+    ``files``: one thread (median ms of JPEG_DECODE_REPS), ``load_view``
+    views/s in 8 threads (as the view stream runs it), and the Laplacian
+    pass over PRE_RATE_VIEWS hard links (``laplacian_rates``)."""
     import concurrent.futures as cf
 
-    from h3dgs_tpu_torch.io.image import read_png
-    from h3dgs_tpu_torch.io.jpeg import read_jpeg
     from h3dgs_tpu_torch.scene.loader import load_view
 
     out = {}
-    for kind, path, read in (("JPEG", jpeg_path, read_jpeg),
-                             ("PNG", png_path, read_png)):
+    for i, (kind, path, read) in enumerate(files):
         ms = []
         for _ in range(JPEG_DECODE_REPS):
             t0 = time.perf_counter()
             read(path)
             ms.append(1e3 * (time.perf_counter() - t0))
-        views = [infos[kind][i % len(infos[kind])]
-                 for i in range(JPEG_LOADER_VIEWS)]
+        views = [infos[kind][j % len(infos[kind])]
+                 for j in range(JPEG_LOADER_VIEWS)]
         t0 = time.perf_counter()
         with cf.ThreadPoolExecutor(max_workers=8) as pool:
-            n = sum(1 for _ in pool.map(lambda i: load_view(i, -1), views))
+            n = sum(1 for _ in pool.map(lambda v: load_view(v, -1), views))
         loader = n / (time.perf_counter() - t0)
-        links = os.path.join(tmp, f"lap_{kind}")
+        links = os.path.join(tmp, f"lap_{i}")
         os.makedirs(links)
         ext = os.path.splitext(path)[1]
-        paths = [os.path.join(links, f"v{i:04d}{ext}")
-                 for i in range(PRE_RATE_VIEWS)]
+        paths = [os.path.join(links, f"v{j:04d}{ext}")
+                 for j in range(PRE_RATE_VIEWS)]
         for p in paths:
             os.link(path, p)
         out[kind] = {"decode_ms": float(np.median(ms)),
@@ -1707,24 +1775,36 @@ def decode_rates(jpeg_path: str, png_path: str, infos, tmp: str) -> dict:
 
 def jpeg_phase(tmp: str, src: str, base) -> dict:
     """JPEG datasets on the card's machine: the fixtures' exactness
-    (``jpeg_exactness``); ``train_single`` for JPEG_ITERS iterations on the
-    training chunk with its 24 views read from the 1600x900 fixture
-    (counted: losses finite, K1 and K2 once per step), and the same run
-    on its PNG twin (the decoded pixels as libpng filters them); the
-    host's decode rates. Returns both runs' launch counts."""
-    from h3dgs_tpu_torch.io.jpeg import read_jpeg
+    (``jpeg_exactness``: decoder and encoder); ``train_single`` for
+    JPEG_ITERS iterations on the training chunk with its 24 views read
+    from the 1600x900 fixture, from its progressive twin (which decodes to
+    the same pixels) and from its PNG twin (the decoded pixels as libpng
+    filters them), each counted (losses finite, K1 and K2 once per step);
+    the host's decode rates of the three, and the one-thread encode of
+    the view at q 85 and 95. Returns the runs' launch counts."""
+    from h3dgs_tpu_torch.io.image import read_png
+    from h3dgs_tpu_torch.io.jpeg import jpeg_info, read_jpeg
 
     t_phase = time.perf_counter()
     jpeg_exactness()
     view = os.path.join(JPEG_DIR, JPEG_VIEW)
+    prog = os.path.join(JPEG_DIR, JPEG_PROGRESSIVE_VIEW)
+    pixels = read_jpeg(view)
+    with open(prog, "rb") as f:
+        assert jpeg_info(f.read())["sof"] == "progressive"
+    assert np.array_equal(read_jpeg(prog), pixels), \
+        "the progressive twin's pixels differ from the view's"
     twin = os.path.join(tmp, "jpeg_twin.png")
-    filters = write_png_adaptive(twin, read_jpeg(view))
+    filters = write_png_adaptive(twin, pixels)
+    runs = (("JPEG", view, "jpg", read_jpeg),
+            ("JPEG progressive", prog, "jpg", read_jpeg),
+            ("PNG", twin, "png", read_png))
     counts, medians, infos = {}, {}, {}
-    for kind, image, ext in (("JPEG", view, "jpg"), ("PNG", twin, "png")):
-        root = os.path.join(tmp, f"chunk_{ext}")
+    for i, (kind, image, ext, _) in enumerate(runs):
+        root = os.path.join(tmp, f"chunk_{i}_{ext}")
         linked_chunk(root, src, image, ext)
         argv = ["-s", root] + base[2:] + [
-            "-m", os.path.join(tmp, f"model_{ext}"), "--iterations",
+            "-m", os.path.join(tmp, f"model_{i}_{ext}"), "--iterations",
             str(JPEG_ITERS)]
         rec, counts[f"{kind} views"] = counted(run_train_cli, argv)
         c = counts[f"{kind} views"]
@@ -1735,18 +1815,20 @@ def jpeg_phase(tmp: str, src: str, base) -> dict:
             c["blend_bwd"] >= JPEG_ITERS, c
         medians[kind] = float(np.median(steady_ms(rec)[0]))
         infos[kind] = rec["scene"].info.train_cameras
-        names = {os.path.basename(i.image_path) for i in infos[kind]}
+        names = {os.path.basename(v.image_path) for v in infos[kind]}
         assert all(n.endswith("." + ext) for n in names), names
         log(f"train_single on {TRAIN_VIEWS} {kind} views ({JPEG_ITERS} "
             f"iterations): photo loss first {photo[0]:.5f}, last "
             f"{photo[-1]:.5f}, median step {medians[kind]:.3f} ms "
             f"(CUDA events, iterations 6-{JPEG_ITERS}); kernel launches {c}")
         del rec
-    log(f"JPEG views against their PNG twins (rows by filter None, Sub, Up,"
-        f" Average, Paeth: {filters.tolist()}), one call: median step "
-        f"{medians['JPEG']:.3f} ms against {medians['PNG']:.3f} "
-        f"({medians['JPEG'] / medians['PNG']:.3f}x)")
-    rates = decode_rates(view, twin, infos, tmp)
+    log(f"JPEG views against their progressive and PNG twins (PNG rows by "
+        f"filter None, Sub, Up, Average, Paeth: {filters.tolist()}), one "
+        f"call ({card_line()}): median step {medians['JPEG']:.3f} ms, progressive "
+        f"{medians['JPEG progressive']:.3f}, PNG {medians['PNG']:.3f} "
+        f"({medians['JPEG'] / medians['PNG']:.3f}x, "
+        f"{medians['JPEG progressive'] / medians['PNG']:.3f}x)")
+    rates = decode_rates([(k, p, r) for k, p, _, r in runs], infos, tmp)
     for kind, r in rates.items():
         lap = r["laplacian"]
         log(f"  {kind} 1600x900 on the host ({card_line()}): one thread "
@@ -1756,6 +1838,10 @@ def jpeg_phase(tmp: str, src: str, base) -> dict:
             f"views); Laplacian pass over {PRE_RATE_VIEWS} hard links: "
             f"decode alone {lap['decode']:.1f} images/s, with the card "
             f"{lap['card']:.1f}, with the CPU {lap['CPU']:.1f}")
+    enc = encode_ms(pixels)
+    log(f"  JPEG encode of the 1600x900 view on the host in one thread "
+        f"({card_line()}): q 85 {enc[85]:.2f} ms, q 95 {enc[95]:.2f} ms "
+        f"(median of {JPEG_DECODE_REPS}, in turns)")
     log(f"JPEG phase: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -2724,14 +2810,17 @@ def write_preprocess_project(proj: str, rng) -> dict:
     """The aligned project in the layout the drivers read
     (``camera_calibration/{aligned,rectified/images,rectified/depths}``,
     ``inputs/masks``), and two copies of the masked views' images for the
-    black-mask step. Every image is written as libpng writes it
-    (``write_png_adaptive``), and each texture is decoded back to its
-    samples. Returns what the checks need: the blurred and the masked
-    views' names, each calibrated view's (a, b), and the textures' paths."""
+    black-mask step, and JPEG copies (q 90, ``encode_jpeg``) of the first
+    PRE_JPEG_MASKED of them under ``black_jpeg``. Every PNG is written as
+    libpng writes it (``write_png_adaptive``), and each texture is decoded
+    back to its samples. Returns what the checks need: the blurred and the
+    masked views' names, each calibrated view's (a, b), and the textures'
+    paths."""
     import shutil
 
     from h3dgs_tpu_torch.io import colmap as colmap_io
     from h3dgs_tpu_torch.io.image import read_png
+    from h3dgs_tpu_torch.io.jpeg_encode import write_jpeg
 
     cc = os.path.join(proj, "camera_calibration")
     sparse = os.path.join(cc, "aligned", "sparse", "0")
@@ -2818,6 +2907,9 @@ def write_preprocess_project(proj: str, rng) -> dict:
             os.makedirs(os.path.join(proj, copy), exist_ok=True)
             shutil.copyfile(os.path.join(images, name),
                             os.path.join(proj, copy, name))
+    for name in masked[:PRE_JPEG_MASKED]:
+        write_jpeg(os.path.join(proj, "black_jpeg", name[:-4] + ".jpg"),
+                   read_png(os.path.join(images, name)), 90)
     return {"blurred": blurred, "calib": calib, "masked": masked,
             "textures": textures, "filters": filters}
 
@@ -3163,6 +3255,11 @@ def preprocess_phase(tmp: str, rng) -> dict:
     log(f"  masks: card {walls['masks uint8 + black (card)']:.1f} s, CPU "
         f"{walls['masks uint8 + black (CPU)']:.1f} s; {len(black)} masks "
         f"and masked views bit-equal; {zeroed:.1%} of pixels blacked")
+    n_jpeg = black_jpeg_check(os.path.join(proj, "black_jpeg"),
+                              os.path.join(proj, "masks_card"))
+    log(f"  masks black on {n_jpeg} JPEG views (card): each written back "
+        f"byte-equal to encode_jpeg(masked pixels, 95), what cv2.imwrite "
+        f"writes")
 
     # 4. host modules at this size
     first = os.path.join(cc, "chunks", names[0])
@@ -3226,6 +3323,32 @@ def preprocess_phase(tmp: str, rng) -> dict:
     log("preprocessing phase: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()))
     return walls
+
+
+def black_jpeg_check(images: str, masks_dir: str) -> int:
+    """``masks black`` on the card over JPEG views: each file must come
+    back as ``encode_jpeg`` at quality 95 of its decoded pixels zeroed
+    where the mask (resized nearest to the view) is below 128. Returns the
+    number of views."""
+    from h3dgs_tpu_torch.io.jpeg import read_jpeg
+    from h3dgs_tpu_torch.io.jpeg_encode import encode_jpeg
+    from h3dgs_tpu_torch.preprocess import masks
+    from h3dgs_tpu_torch.preprocess.imgproc import load_gray8, resize_nearest
+
+    names = sorted(os.listdir(images))
+    want = {}
+    for name in names:
+        px = read_jpeg(os.path.join(images, name))
+        mask = torch.from_numpy(load_gray8(os.path.join(
+            masks_dir, name[:-4] + ".png")))
+        mask = resize_nearest(mask, *px.shape[:2]).numpy()
+        px[mask < 128] = 0
+        want[name] = encode_jpeg(px, 95)
+    assert masks.black_mask_images(images, masks_dir, DEVICE) == len(names)
+    for name in names:
+        with open(os.path.join(images, name), "rb") as f:
+            assert f.read() == want[name], f"masks black: {name}"
+    return len(names)
 
 
 def build_kernels() -> None:
@@ -3330,7 +3453,7 @@ def main() -> int:
     log(f"preprocessing path, in process: kernel launches {pre_counts} "
         "(its image work is plain torch)")
     dp_views = DP_VIEWS * (DP_ITERS + DP_FUSED_ITERS + DP_POST_ITERS)
-    jpeg_views = 2 * JPEG_ITERS         # JPEG views and their PNG twins
+    jpeg_views = 3 * JPEG_ITERS         # JPEG, progressive and PNG views
     views = (TRAIN_ITERS + FUSED_ITERS + jpeg_views + POST_ITERS
              + POST_RESUMED + POST_FUSED_ITERS + dp_views)
     fused_views = FUSED_ITERS + POST_FUSED_ITERS + DP_VIEWS * DP_FUSED_ITERS
@@ -3341,8 +3464,9 @@ def main() -> int:
     log(f"kernel launches over the {len(paths)} paths: {total} ({frames} "
         f"frames, {n_bands} bands, {N_WEB} web frames, {views} training "
         f"views ({dp_views} of them {DP_VIEWS} a step, {fused_views} with "
-        f"the fused loss, {jpeg_views} read from JPEG files and their PNG "
-        f"twins), {eval_frames} evaluation frames, 1 render call)")
+        f"the fused loss, {jpeg_views} read from baseline and progressive "
+        f"JPEG files and PNG twins), {eval_frames} evaluation frames, 1 "
+        f"render call)")
     assert total["blend_fwd"] >= (frames + n_bands + N_WEB + views
                                   + eval_frames + 1), total
     assert total["blend_bwd"] >= views, total

@@ -1,14 +1,17 @@
-// Baseline and extended-sequential Huffman JPEG decoding (ITU-T T.81) for
-// h3dgs_tpu_torch/io/jpeg.py, whose marker parser hands over the frame,
-// the quantisation tables and each scan's entropy-coded bytes and Huffman
-// tables. Everything after the headers runs here: Huffman decoding with
-// restart markers, DC prediction, dequantisation and libjpeg's ISLOW
-// integer IDCT (jidctint.c), upsampling as libjpeg-turbo does it by
-// default (jdsample.c: "fancy" triangle filters for 2x horizontal, 2x2 and
-// 2x vertical factors, replication for other integer factors) and
-// jdcolor.c's fixed-point YCbCr -> RGB. The result is bit-equal to
-// libjpeg-turbo's default decode (what PIL and OpenCV return). Built by
-// h3dgs_tpu_torch/native.py with the host's C++ compiler; plain C++17.
+// Baseline, extended-sequential and progressive Huffman JPEG decoding
+// (ITU-T T.81) for h3dgs_tpu_torch/io/jpeg.py, whose marker parser hands
+// over the frame, the quantisation tables and each scan's entropy-coded
+// bytes, Huffman tables and spectral / successive-approximation bands.
+// Everything after the headers runs here: Huffman decoding with restart
+// markers of every scan into one coefficient buffer (the four progressive
+// scan kinds as jdphuff.c decodes them), DC prediction, dequantisation
+// and libjpeg's ISLOW integer IDCT (jidctint.c), upsampling as
+// libjpeg-turbo does it by default (jdsample.c: "fancy" triangle filters
+// for 2x horizontal, 2x2 and 2x vertical factors, replication for other
+// integer factors) and jdcolor.c's fixed-point YCbCr -> RGB. The result
+// is bit-equal to libjpeg-turbo's default decode (what PIL and OpenCV
+// return). Built by h3dgs_tpu_torch/native.py with the host's C++
+// compiler; plain C++17.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -194,6 +197,97 @@ inline void decode_block(BitReader& br, const Huffman& dc, const Huffman& ac,
       if (r != 15) break;
       k += 15;
     }
+  }
+}
+
+// ---- progressive scans (jdphuff.c) ----
+
+// A coefficient shifted left by `al` as libjpeg's LEFT_SHIFT does it (in
+// unsigned arithmetic), stored as a 16-bit JCOEF.
+inline int16_t shifted(int32_t v, int al) {
+  return static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+}
+
+// The first bits of a DC coefficient: the difference from the predictor,
+// shifted by Al (decode_mcu_DC_first).
+inline void dc_first(BitReader& br, const Huffman& dc, int al,
+                     int32_t* last_dc, int16_t* block, int64_t* status) {
+  const int s = decode_symbol(br, dc, status);
+  const int diff = s ? extend(br.bits(s), s) : 0;
+  *last_dc = static_cast<int32_t>(static_cast<uint32_t>(*last_dc) +
+                                  static_cast<uint32_t>(diff));
+  block[0] = shifted(*last_dc, al);
+}
+
+// One more bit of a DC coefficient (decode_mcu_DC_refine).
+inline void dc_refine(BitReader& br, int al, int16_t* block) {
+  if (br.bits(1)) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+}
+
+// The first bits of the AC band [ss, se] (decode_mcu_AC_first): run/size
+// pairs, ZRL, and EOB runs that end this band in the next blocks too.
+inline void ac_first(BitReader& br, const Huffman& ac, int ss, int se,
+                     int al, int* eobrun, int16_t* block, int64_t* status) {
+  if (*eobrun > 0) {
+    --*eobrun;
+    return;
+  }
+  for (int k = ss; k <= se; ++k) {
+    const int rs = decode_symbol(br, ac, status);
+    const int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      block[kNatural[k]] = shifted(extend(br.bits(s), s), al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      *eobrun = (1 << r) + br.bits(r) - 1;
+      break;
+    }
+  }
+}
+
+// A correction bit for a nonzero coefficient: 1 adds the bit at Al to its
+// magnitude (once).
+inline void correct(BitReader& br, int16_t* coef, int p1) {
+  if (br.bits(1) && (*coef & p1) == 0)
+    *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef - p1);
+}
+
+// One more bit of the AC band [ss, se] (decode_mcu_AC_refine): new
+// coefficients of +-1 << Al after runs of still-zero ones, correction bits
+// for those already nonzero, and EOB runs that still correct the band.
+inline void ac_refine(BitReader& br, const Huffman& ac, int ss, int se,
+                      int al, int* eobrun, int16_t* block, int64_t* status) {
+  const int p1 = 1 << al;
+  int k = ss;
+  if (*eobrun == 0) {
+    for (; k <= se; ++k) {
+      const int rs = decode_symbol(br, ac, status);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {  // a size other than 1 is libjpeg's warning; read on
+        s = br.bits(1) ? p1 : -p1;
+      } else if (r != 15) {
+        *eobrun = (1 << r) + br.bits(r);
+        break;
+      }
+      // Past the nonzero coefficients (correcting them) and r zeros.
+      do {
+        int16_t* coef = block + kNatural[k];
+        if (*coef != 0) {
+          correct(br, coef, p1);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (s) block[kNatural[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (*eobrun > 0) {
+    for (; k <= se; ++k)
+      if (block[kNatural[k]] != 0) correct(br, block + kNatural[k], p1);
+    --*eobrun;
   }
 }
 
@@ -397,10 +491,13 @@ const uint8_t* upsampled_row(Plane& p, int64_t y, int64_t width) {
 // frame: width, height, number of components (1 or 3), colour (0 gray,
 // 1 YCbCr, 2 RGB), gray output (0 or 1), then each component's h and v
 // sampling factors. quant: each component's 64 quantisation values in
-// natural order. scans: per scan 8 values: start and end of its entropy
-// bytes in `data`, restart interval (0: none), number of components, and
-// their indices. huff: per scan, for each of its (up to 4) components, the
-// DC then the AC table, each 16 code counts and 256 symbols. out: [height,
+// natural order. scans: per scan 16 values: start and end of its entropy
+// bytes in `data`, restart interval (0: none), number of components,
+// their (up to 4) indices, then progressive (0 or 1), Ss, Se, Ah, Al. huff:
+// per scan, for each of its components, the DC then the AC table, each 16
+// code counts and 256 symbols (a table the scan does not use is not
+// read). Every scan fills one coefficient buffer; the image is made from
+// it after the last. out: [height,
 // width, 3] (or [height, width] for one component or gray output) uint8.
 // Returns the status bits (0: clean) or, for arguments the caller should
 // have refused, -1 (frame) or -2 (a Huffman table).
@@ -436,25 +533,51 @@ extern "C" int64_t h3dgs_jpeg_decode(const uint8_t* data, int64_t size,
 
   int64_t status = 0;
   for (int64_t s = 0; s < n_scans; ++s) {
-    const int64_t* sc = scans + 8 * s;
+    const int64_t* sc = scans + 16 * s;
     const int64_t start = sc[0], end = sc[1], restart = sc[2];
     const int ns = static_cast<int>(sc[3]);
+    const bool prog = sc[8] != 0;
+    const int ss = static_cast<int>(sc[9]), se = static_cast<int>(sc[10]);
+    const int ah = static_cast<int>(sc[11]), al = static_cast<int>(sc[12]);
     if (start < 0 || end < start || end > size || ns < 1 || ns > ncomp)
       return -1;
+    if (prog && (al > 13 || (ah && al != ah - 1) ||
+                 (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1))))
+      return -1;
+    // The tables a scan reads: both (sequential), the DC table (first DC
+    // scans), the AC table (AC scans), none (DC refinements).
+    const bool use_dc = !prog || (ss == 0 && ah == 0);
+    const bool use_ac = !prog || ss > 0;
     int comp[4];
     Huffman dc[4], ac[4];
     for (int i = 0; i < ns; ++i) {
       comp[i] = static_cast<int>(sc[4 + i]);
       if (comp[i] < 0 || comp[i] >= ncomp) return -1;
       const uint8_t* t = huff + (s * 4 + i) * 2 * kTableBytes;
-      if (!dc[i].build(t) || !ac[i].build(t + kTableBytes)) return -2;
+      if ((use_dc && !dc[i].build(t)) ||
+          (use_ac && !ac[i].build(t + kTableBytes)))
+        return -2;
       int n_dc = 0;
       for (int len = 0; len < 16; ++len) n_dc += t[len];
-      for (int k = 0; k < n_dc; ++k)  // DC categories above 15: refused
+      for (int k = 0; use_dc && k < n_dc; ++k)  // DC categories above 15
         if (t[16 + k] > 15) return -2;
     }
     BitReader br{data, start, end};
     int32_t last_dc[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    // One block of this scan, whichever its kind.
+    auto block_of = [&](int i, int16_t* block) {
+      if (!prog)
+        decode_block(br, dc[i], ac[i], &last_dc[i], block, &status);
+      else if (ss == 0 && ah == 0)
+        dc_first(br, dc[i], al, &last_dc[i], block, &status);
+      else if (ss == 0)
+        dc_refine(br, al, block);
+      else if (ah == 0)
+        ac_first(br, ac[i], ss, se, al, &eobrun, block, &status);
+      else
+        ac_refine(br, ac[i], ss, se, al, &eobrun, block, &status);
+    };
     // A scan of one component is not interleaved: its MCU is one block,
     // over the component's own ceil(size / 8) blocks.
     int64_t units_x = mcux, units;
@@ -474,12 +597,12 @@ extern "C" int64_t h3dgs_jpeg_decode(const uint8_t* data, int64_t size,
         if (br.ran_short()) status |= kShort;
         br.restart();
         last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
+        eobrun = 0;
       }
       const int64_t my = m / units_x, mx = m % units_x;
       if (ns == 1) {
         const int c = comp[0];
-        decode_block(br, dc[0], ac[0], &last_dc[0],
-                     coef[c].data() + (my * bw[c] + mx) * 64, &status);
+        block_of(0, coef[c].data() + (my * bw[c] + mx) * 64);
         continue;
       }
       for (int i = 0; i < ns; ++i) {
@@ -487,10 +610,8 @@ extern "C" int64_t h3dgs_jpeg_decode(const uint8_t* data, int64_t size,
         const int h = frame[5 + 2 * c], v = frame[6 + 2 * c];
         for (int yy = 0; yy < v; ++yy)
           for (int xx = 0; xx < h; ++xx)
-            decode_block(
-                br, dc[i], ac[i], &last_dc[i],
-                coef[c].data() + ((my * v + yy) * bw[c] + mx * h + xx) * 64,
-                &status);
+            block_of(i, coef[c].data() +
+                            ((my * v + yy) * bw[c] + mx * h + xx) * 64);
       }
     }
     if (br.ran_short()) status |= kShort;

@@ -1,15 +1,18 @@
 """Image files: a PNG codec of its own (zlib + numpy), the JPEG decoder
-of ``io/jpeg.py``, and PIL for other formats where it is installed.
+of ``io/jpeg.py`` and encoder of ``io/jpeg_encode.py``, and PIL for other
+formats where it is installed.
 
 The JAX package decodes with PIL and OpenCV; the port's loader reads every
 image through ``read_image``. PNG is read and written by this module: 8- and 16-bit
 samples, gray / gray+alpha / RGB / RGBA, non-interlaced, all five
-scanline filter types on read. JPEG is read by ``io/jpeg.py``: baseline
-and extended-sequential Huffman JPEG, 8-bit, gray or three components,
-bit-equal to libjpeg-turbo's decode (PIL's and OpenCV's), never through
-PIL. A JPEG of another kind (progressive, arithmetic, 12-bit, CMYK) and
-other formats go through PIL when it is importable; otherwise
-``read_image`` raises an error naming the file and what it holds.
+scanline filter types on read. JPEG is read by ``io/jpeg.py``: baseline,
+extended-sequential and progressive Huffman JPEG, 8-bit, gray or three
+components, bit-equal to libjpeg-turbo's decode (PIL's and OpenCV's),
+never through PIL; and written by ``io/jpeg_encode.py``, bit-equal to
+``cv2.imwrite``. A JPEG of another kind (arithmetic, 12-bit, CMYK,
+progressive with unfinished scans) and other formats go through PIL when
+it is importable; otherwise ``read_image`` raises an error naming the file
+and what it holds.
 
 Undoing the scanline filters is a byte-serial loop (Average and Paeth
 read the reconstructed left neighbour). It runs in C++
@@ -29,6 +32,7 @@ import zlib
 import numpy as np
 
 from .jpeg import UnsupportedJpeg, read_jpeg
+from .jpeg_encode import write_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG color type -> samples per pixel (palette images are not read)
@@ -229,8 +233,9 @@ def _format(head: bytes) -> str:
 
 def read_image(path: str) -> np.ndarray:
     """Decode an image file to a numpy array ([H, W] or [H, W, C], uint8 or
-    uint16). PNG and JPEG (the kinds ``io/jpeg.py`` reads) are decoded by
-    the port; other formats and JPEG kinds need PIL."""
+    uint16). PNG and JPEG (baseline, extended-sequential and progressive:
+    the kinds ``io/jpeg.py`` reads) are decoded by the port; other formats
+    and the JPEG kinds ``io/jpeg.py`` refuses need PIL."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
@@ -255,15 +260,20 @@ def read_image(path: str) -> np.ndarray:
 def write_image(path: str, img: np.ndarray) -> None:
     """Write ``img`` (as ``write_png`` takes it, RGB order) in the format
     the path's extension names, with ``cv2.imwrite``'s defaults: PNG by
-    this module at zlib level 1, other formats (JPEG at quality 95)
-    through PIL, raising without it."""
-    if path.lower().endswith(".png"):
+    this module at zlib level 1, JPEG (``.jpg``, ``.jpeg``; uint8 RGB or
+    gray) by ``io/jpeg_encode.py`` at quality 95, the bytes ``cv2.imwrite``
+    writes; other formats through PIL, raising without it."""
+    lower = path.lower()
+    if lower.endswith(".png"):
         write_png(path, img, level=1)
+        return
+    if lower.endswith((".jpg", ".jpeg")):
+        write_jpeg(path, img, 95)
         return
     try:
         from PIL import Image
     except ImportError:
         raise ValueError(
-            f"{path}: only PNG is written without PIL (install Pillow or "
-            "convert the dataset to PNG)") from None
+            f"{path}: only PNG and JPEG are written without PIL (install "
+            "Pillow or convert the dataset to PNG)") from None
     Image.fromarray(np.ascontiguousarray(img)).save(path, quality=95)

@@ -1,6 +1,7 @@
-"""JPEG decoding without PIL: baseline (SOF0) and extended-sequential
-(SOF1) Huffman JPEG with 8-bit samples, 1 or 3 components and any
-sampling factors from 1 to 4 whose ratios are integers.
+"""JPEG decoding without PIL: baseline (SOF0), extended-sequential (SOF1)
+and progressive (SOF2) Huffman JPEG with 8-bit samples, 1 or 3
+components and any sampling factors from 1 to 4 whose ratios are
+integers.
 
 The JAX package reads JPEG through PIL and OpenCV, which both decode with
 libjpeg-turbo; the card's machine has neither. This module gives the same
@@ -10,7 +11,8 @@ vertical factors, replication for the other integer factors; not the DCT
 scaling of IJG libjpeg 7 and later) and its fixed-point YCbCr -> RGB.
 
 The markers are parsed here, in Python; everything after them (Huffman
-decoding, IDCT, upsampling, colour) runs in C++ (``csrc/jpeg_decode.cpp``,
+decoding of every scan into one coefficient buffer, IDCT, upsampling,
+colour) runs in C++ (``csrc/jpeg_decode.cpp``,
 built at first use by ``native.build`` with the host's compiler; the call
 releases the GIL, so the loader's decoding threads run in parallel). A
 failed build raises. ``decode_jpeg_plain`` is the same decode in numpy
@@ -37,11 +39,20 @@ False``) takes them:
   not equal libjpeg's recovery. The decoder never reads past the buffer
   and ends after a bounded number of blocks.
 
-Progressive, arithmetic-coded, lossless and hierarchical JPEG, 12-bit
-samples, 2 or 4 components (CMYK / YCCK), a DNL marker, non-integer
-sampling ratios and MCUs of more than 10 blocks (which libjpeg refuses)
-raise ``UnsupportedJpeg``, a ``ValueError`` naming the file and the
-feature.
+A progressive file's scans follow libjpeg's checks (a DC scan may hold
+several components, an AC scan one, with 1 <= Ss <= Se <= 63; Al <= 13;
+a refinement's Al is its Ah - 1) and each scan refines what the scan
+before it left (Ah is the previous Al). Where the scans leave one of the
+first ten coefficients of a component unfinished, libjpeg-turbo smooths
+the blocks (``jdcoefct.c`` ``decompress_smooth_data``); such a file is
+refused (H20 in ``ROADMAP.md``), and PIL reads it where installed. The
+scripts of PIL's and OpenCV's encoders always finish.
+
+Arithmetic-coded, lossless and hierarchical JPEG, 12-bit samples, 2 or 4
+components (CMYK / YCCK), a DNL marker, non-integer sampling ratios, MCUs
+of more than 10 blocks (which libjpeg refuses) and progressive files with
+unfinished or inconsistent scans raise ``UnsupportedJpeg``, a
+``ValueError`` naming the file and the feature.
 """
 from __future__ import annotations
 
@@ -73,8 +84,12 @@ SOF_KINDS = {
     0xCD: "arithmetic-coded differential sequential",
     0xCE: "arithmetic-coded differential progressive",
     0xCF: "arithmetic-coded differential lossless"}
-SUPPORTED_SOF = (0xC0, 0xC1)
+SUPPORTED_SOF = (0xC0, 0xC1, 0xC2)
+PROGRESSIVE = 0xC2
 MAX_BLOCKS_IN_MCU = 10          # libjpeg's D_MAX_BLOCKS_IN_MCU
+SMOOTHED_COEFS = 10             # libjpeg-turbo's SAVED_COEFS
+SCAN_ROW = 16                   # int64 values per scan for the C++ code
+_NO_TABLE = bytes(272)          # a Huffman table a scan does not use
 MAX_DIMENSION = 65500           # libjpeg's JPEG_MAX_DIMENSION
 
 # Zigzag index -> natural index, padded with 63 (libjpeg's
@@ -99,8 +114,8 @@ _STUFFED = re.compile(rb"\xff+\x00")
 
 
 class UnsupportedJpeg(ValueError):
-    """A JPEG of a kind this decoder does not read (progressive,
-    arithmetic, 12-bit, CMYK, ...)."""
+    """A JPEG of a kind this decoder does not read (arithmetic, 12-bit,
+    CMYK, progressive with unfinished scans, ...)."""
 
 
 @dataclasses.dataclass
@@ -110,7 +125,13 @@ class Scan:
     comps: Tuple[int, ...]      # indices into the frame's components
     tables: Tuple[Tuple[bytes, bytes], ...]   # (DC, AC) per component,
     #                             each 16 code counts + 256 symbols
+    #                             (zeros where the scan uses none)
     restart: int                # MCUs per restart interval (0: none)
+    progressive: bool = False
+    ss: int = 0                 # spectral selection, zigzag [ss, se]
+    se: int = 63
+    ah: int = 0                 # successive approximation: bits from al;
+    al: int = 0                 # ah > 0 refines from bit ah
 
 
 @dataclasses.dataclass
@@ -248,20 +269,32 @@ def parse_jpeg(buf: bytes, path: str = "<bytes>",
             ns = body[0] if body else 0
             if ns < 1 or ns > len(ids) or len(body) < 4 + 2 * ns:
                 raise bad("bad SOS segment")
+            progressive = frame[0] == PROGRESSIVE
+            ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
+            ah, al = ahl >> 4, ahl & 15
+            if progressive:
+                _check_scan(ss, se, ah, al, ns, path)
+            # A progressive scan reads the DC table (first DC scans) or
+            # the AC table (AC scans), a DC refinement none.
+            uses = ((True, True) if not progressive else
+                    (ss == 0 and ah == 0, ss > 0))
             comps, tables = [], []
             for i in range(ns):
                 cid, sel = body[1 + 2 * i], body[2 + 2 * i]
                 if cid not in ids or ids.index(cid) in comps:
                     raise bad(f"scan component id {cid} not in the frame")
                 ci = ids.index(cid)
-                key_dc, key_ac = (0, sel >> 4), (1, sel & 15)
-                for key in (key_dc, key_ac):
+                pair = []
+                for used, key in zip(uses, ((0, sel >> 4), (1, sel & 15))):
+                    if not used:
+                        pair.append(_NO_TABLE)
+                        continue
                     if key not in huff:
                         raise bad(f"Huffman table {key[1]} not defined")
-                _check_huffman(huff[key_dc], path, dc=True)
-                _check_huffman(huff[key_ac], path, dc=False)
+                    _check_huffman(huff[key], path, dc=key[0] == 0)
+                    pair.append(huff[key])
                 comps.append(ci)
-                tables.append((huff[key_dc], huff[key_ac]))
+                tables.append(tuple(pair))
                 if ci not in comp_q:            # latched at first use
                     tq = frame[4][ci][2]
                     if qt[tq] is None:
@@ -274,7 +307,8 @@ def parse_jpeg(buf: bytes, path: str = "<bytes>",
                     raise UnsupportedJpeg(
                         f"{path}: an MCU of {blocks} blocks (libjpeg reads "
                         f"at most {MAX_BLOCKS_IN_MCU})")
-            if scans and len(scans[0].comps) == len(ids):
+            if not progressive and scans and \
+                    len(scans[0].comps) == len(ids):
                 raise bad("a second scan after one that held every "
                           "component")
             m = _SCAN_END.search(buf, pos)
@@ -282,7 +316,7 @@ def parse_jpeg(buf: bytes, path: str = "<bytes>",
             while end > pos and buf[end - 1] == 0xFF:    # fill bytes
                 end -= 1
             scans.append(Scan(pos, end, tuple(comps), tuple(tables),
-                              restart))
+                              restart, progressive, ss, se, ah, al))
             pos = end
         elif marker == 0xE0 and body[:5] == b"JFIF\x00" and len(body) >= 14:
             jfif = True
@@ -301,6 +335,8 @@ def parse_jpeg(buf: bytes, path: str = "<bytes>",
     quant = np.zeros((len(comps), 64), np.uint16)
     for ci, table in comp_q.items():
         quant[ci] = table
+    if sof == PROGRESSIVE and not headers_only:
+        _check_progression(scans, len(comps), comp_q, path)
     return JpegHeader(
         width=width, height=height, sof=sof, ids=ids,
         sampling=[(c[1] >> 4, c[1] & 15) for c in comps], quant=quant,
@@ -339,6 +375,48 @@ def _check_frame(frame, path: str) -> None:
             "non-integer ratio (libjpeg does not read them either)")
     if any(c[2] > 3 for c in comps):
         raise ValueError(f"{path}: bad quantisation table index")
+
+
+def _check_scan(ss: int, se: int, ah: int, al: int, ns: int,
+                path: str) -> None:
+    """libjpeg's checks of a progressive scan (jdphuff.c
+    start_pass_phuff_decoder): a DC scan is Ss = Se = 0, an AC scan holds
+    one component with 1 <= Ss <= Se <= 63, a refinement has Al = Ah - 1,
+    and Al <= 13."""
+    ok = se == 0 if ss == 0 else (ss <= se <= 63 and ns == 1)
+    if (ah and al != ah - 1) or al > 13 or not ok:
+        raise ValueError(f"{path}: bad progressive scan (Ss {ss}, Se {se}, "
+                         f"Ah {ah}, Al {al}, {ns} components)")
+
+
+def _check_progression(scans: List[Scan], n_comps: int, comp_q: dict,
+                       path: str) -> None:
+    """Refuse what libjpeg decodes with a warning (a scan whose Ah is not
+    the Al its coefficients were left at) and what it smooths: its
+    ``smoothing_ok`` over the coefficient bits after the last scan (every
+    component's table latched and nonzero at the first ten coefficients,
+    every DC sent, and one of zigzag 1-9 unfinished somewhere)."""
+    bits = np.full((n_comps, 64), -1, np.int64)    # libjpeg's coef_bits
+    for s in scans:
+        for c in s.comps:
+            band = bits[c, s.ss:s.se + 1]
+            if np.any(np.maximum(band, 0) != s.ah):
+                raise UnsupportedJpeg(
+                    f"{path}: progressive JPEG whose scan refines "
+                    f"coefficients {s.ss}-{s.se} of component {c} from bit "
+                    f"{s.ah}, where earlier scans left "
+                    f"{sorted(set(band.tolist()))} (libjpeg decodes it with "
+                    "a warning)")
+            band[:] = s.al
+    first = NATURAL[:SMOOTHED_COEFS]
+    for c in range(n_comps):
+        if c not in comp_q or not comp_q[c][first].all() or bits[c, 0] < 0:
+            return                              # libjpeg does not smooth
+    if np.any(bits[:, 1:SMOOTHED_COEFS] != 0):
+        raise UnsupportedJpeg(
+            f"{path}: progressive JPEG with incomplete scans (coefficients "
+            f"of the first {SMOOTHED_COEFS} unfinished, which libjpeg-turbo "
+            "smooths across blocks) is not read by the port's decoder")
 
 
 def _check_huffman(table: bytes, path: str, dc: bool) -> None:
@@ -396,11 +474,12 @@ def _decode_native(fn, buf: bytes, h: JpegHeader, gray: bool):
     colour = {"gray": 0, "ycc": 1, "rgb": 2}[h.colour]
     frame = np.array([h.width, h.height, len(h.ids), colour, int(gray)]
                      + [f for hv in h.sampling for f in hv], np.int32)
-    scans = np.zeros((len(h.scans), 8), np.int64)
+    scans = np.zeros((len(h.scans), SCAN_ROW), np.int64)
     tables = np.zeros((len(h.scans), 4, 2, 272), np.uint8)
     for i, s in enumerate(h.scans):
         scans[i, :4] = (s.start, s.end, s.restart, len(s.comps))
         scans[i, 4:4 + len(s.comps)] = s.comps
+        scans[i, 8:13] = (s.progressive, s.ss, s.se, s.ah, s.al)
         for j, (dc, ac) in enumerate(s.tables):
             tables[i, j, 0] = np.frombuffer(dc, np.uint8)
             tables[i, j, 1] = np.frombuffer(ac, np.uint8)
@@ -501,6 +580,119 @@ def _geometry(h: JpegHeader):
     return hmax, vmax, -(-h.width // (8 * hmax)), -(-h.height // (8 * vmax))
 
 
+def _i16(v: int) -> int:
+    """``v`` stored as a 16-bit JCOEF."""
+    return (v + 2 ** 15) % 2 ** 16 - 2 ** 15
+
+
+class _Symbols:
+    """Huffman symbols of one table from a ``_Bits`` reader; a pattern
+    that is no code consumes 17 bits and reads 0, as in libjpeg."""
+
+    def __init__(self, table: bytes, stat):
+        self.lengths, self.symbols = _lookup(table)
+        self.stat = stat
+
+    def __call__(self, br: "_Bits") -> int:
+        look = br.peek16()
+        br.pos += self.lengths[look]
+        if self.lengths[look] == 17:
+            self.stat[0] |= BAD_CODE
+        return self.symbols[look]
+
+
+def _sequential_block(br, dc, ac, block, last, i, natural):
+    """One baseline block: the DC difference, then the AC run/size
+    pairs."""
+    s = dc(br)
+    diff = _extend(br.bits(s), s) if s else 0
+    # an int predictor stored as a 16-bit JCOEF
+    last[i] = (last[i] + diff + 2 ** 31) % 2 ** 32 - 2 ** 31
+    block[0] = _i16(last[i])
+    k = 1
+    while k < 64:
+        rs = ac(br)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            block[natural[k]] = _extend(br.bits(s), s)
+        elif r != 15:
+            break
+        else:
+            k += 15
+        k += 1
+
+
+def _progressive_block(br, scan, dc, ac, block, last, i, eobrun, natural):
+    """One block of a progressive scan (jdphuff.c's decode_mcu_DC_first,
+    _DC_refine, _AC_first, _AC_refine); ``eobrun`` a one-item list."""
+    al = scan.al
+    if scan.ss == 0:
+        if scan.ah == 0:
+            s = dc(br)
+            diff = _extend(br.bits(s), s) if s else 0
+            last[i] = (last[i] + diff + 2 ** 31) % 2 ** 32 - 2 ** 31
+            block[0] = _i16(last[i] << al)
+        elif br.bits(1):
+            block[0] = _i16(int(block[0]) | (1 << al))
+        return
+    if scan.ah == 0:
+        if eobrun[0] > 0:
+            eobrun[0] -= 1
+            return
+        k = scan.ss
+        while k <= scan.se:
+            rs = ac(br)
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                block[natural[k]] = _i16(_extend(br.bits(s), s) << al)
+            elif r == 15:
+                k += 15
+            else:
+                eobrun[0] = (1 << r) + br.bits(r) - 1
+                break
+            k += 1
+        return
+    p1, m1 = 1 << al, -(1 << al)
+
+    def correct(at):
+        """A correction bit for a nonzero coefficient."""
+        v = int(block[at])
+        if br.bits(1) and not v & p1:
+            block[at] = _i16(v + (p1 if v >= 0 else m1))
+
+    k = scan.ss
+    if eobrun[0] == 0:
+        while k <= scan.se:
+            rs = ac(br)
+            r, s = rs >> 4, rs & 15
+            if s:
+                s = p1 if br.bits(1) else m1
+            elif r != 15:
+                eobrun[0] = (1 << r) + br.bits(r)
+                break
+            # past the nonzero coefficients (correcting them) and r zeros
+            while True:
+                if block[natural[k]] != 0:
+                    correct(natural[k])
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+                if k > scan.se:
+                    break
+            if s:
+                block[natural[k]] = s
+            k += 1
+    if eobrun[0] > 0:
+        for kk in range(k, scan.se + 1):
+            if block[natural[kk]] != 0:
+                correct(natural[kk])
+        eobrun[0] -= 1
+
+
 def _decode_scan(buf: bytes, h: JpegHeader, scan: Scan, coef, stat):
     """Huffman-decode one scan into ``coef`` (per component [blocks_y,
     blocks_x, 64] int16, natural order)."""
@@ -508,7 +700,8 @@ def _decode_scan(buf: bytes, h: JpegHeader, scan: Scan, coef, stat):
     seg = buf[scan.start:scan.end]
     pieces = (_RESTART.split(seg) if scan.restart else
               [_RESTART.split(seg, 1)[0]])
-    luts = [(_lookup(dc), _lookup(ac)) for dc, ac in scan.tables]
+    luts = [(_Symbols(dc, stat), _Symbols(ac, stat))
+            for dc, ac in scan.tables]
     if len(scan.comps) == 1:
         c = scan.comps[0]
         dw = -(-h.width * h.sampling[c][0] // hmax)
@@ -523,41 +716,22 @@ def _decode_scan(buf: bytes, h: JpegHeader, scan: Scan, coef, stat):
         br = _Bits(_STUFFED.sub(b"\xff", pieces[piece])
                    if piece < len(pieces) else b"")
         last = [0] * len(scan.comps)
+        eobrun = [0]
         for m in range(first, min(first + interval, units)):
             my, mx = divmod(m, units_x)
             for i, c in enumerate(scan.comps):
                 hs, vs = ((1, 1) if len(scan.comps) == 1
                           else h.sampling[c])
-                (dl, dsym), (al, asym) = luts[i]
+                dc, ac = luts[i]
                 for yy in range(vs):
                     for xx in range(hs):
                         block = coef[c][my * vs + yy, mx * hs + xx]
-                        look = br.peek16()
-                        s = dsym[look]
-                        br.pos += dl[look]
-                        if dl[look] == 17:
-                            stat[0] |= BAD_CODE
-                        diff = _extend(br.bits(s), s) if s else 0
-                        # an int predictor stored as a 16-bit JCOEF
-                        last[i] = (last[i] + diff + 2 ** 31) % 2 ** 32 \
-                            - 2 ** 31
-                        block[0] = (last[i] + 2 ** 15) % 2 ** 16 - 2 ** 15
-                        k = 1
-                        while k < 64:
-                            look = br.peek16()
-                            rs = asym[look]
-                            br.pos += al[look]
-                            if al[look] == 17:
-                                stat[0] |= BAD_CODE
-                            r, s = rs >> 4, rs & 15
-                            if s:
-                                k += r
-                                block[natural[k]] = _extend(br.bits(s), s)
-                            elif r != 15:
-                                break
-                            else:
-                                k += 15
-                            k += 1
+                        if scan.progressive:
+                            _progressive_block(br, scan, dc, ac, block, last,
+                                               i, eobrun, natural)
+                        else:
+                            _sequential_block(br, dc, ac, block, last, i,
+                                              natural)
         if br.pos > br.nbits:
             stat[0] |= SHORT_DATA
 

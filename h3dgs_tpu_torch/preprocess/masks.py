@@ -8,10 +8,11 @@ directly in the images).
 Files are decoded with OpenCV's channel semantics (``imgproc``) in host
 threads; the threshold, erosion and resize run on the device. A PNG comes
 out pixel-equal to the JAX package's (the bytes differ: OpenCV's encoder
-filters rows, this one does not). ``black_mask_images`` writes a JPEG back
-through PIL (``io.image.write_image``), where it is installed, at OpenCV's
-default quality 95, and raises without it; OpenCV's JPEG bytes cannot be
-reproduced, so only PNG images are pixel-equal.
+filters rows, this one does not). ``black_mask_images`` writes a JPEG
+(``.jpg``, ``.jpeg``) back through ``io.image.write_image`` at OpenCV's
+default quality 95 with the port's own encoder: the bytes ``cv2.imwrite``
+writes for the JAX package, upright as ``cv2.imread`` turned it by its
+EXIF orientation, and without EXIF (H21 in ``ROADMAP.md``).
 """
 from __future__ import annotations
 

@@ -139,8 +139,11 @@ class HierarchyRenderer:
                                   self.bg, self.raster_cfg,
                                   band_devices=self.band_devices)
         # uint8 on the device (by truncation): the host copy is 4x smaller.
+        # Made contiguous there: the JPEG encoder and the socket read the
+        # frame in row order, and a strided host copy of a 1080p frame
+        # costs them more than the frame's render.
         img = torch.clamp(out["render"], 0.0, 1.0)
-        return (img.permute(1, 2, 0) * 255.0).to(torch.uint8)
+        return (img.permute(1, 2, 0) * 255.0).to(torch.uint8).contiguous()
 
     def _cut_for(self, camera: Camera, tau: float):
         """Cached-or-fresh flat Gaussians for (camera position, tau)."""

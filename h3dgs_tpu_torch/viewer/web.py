@@ -8,16 +8,17 @@ zoom in inline JS) that streams frames rendered by
 Endpoints:
   ``/``            the viewer page (inline HTML+JS, no external assets)
   ``/info``        scene bounds + camera defaults (JSON)
-  ``/frame?...``   one rendered frame (PNG) with ``X-Cut-*`` stat headers
+  ``/frame?...``   one rendered frame (JPEG) with ``X-Cut-*`` stat headers
 
 Frame parameters: ``ex,ey,ez`` eye, ``tx,ty,tz`` look-at target, ``fovx``
-(radians), ``w,h`` resolution, ``tau`` granularity. ``q`` (the JAX
-viewer's JPEG quality) is accepted and ignored: frames are always PNG,
-encoded by the port's own codec (``io/image.py:encode_png``), because the
-card's machine has no PIL. The page reads a reply as a blob, so it shows
-either type, and a served frame decodes to exactly
-``renderer.render(...)``. The render path is the service's tau-budgeted,
-cut-cached pipeline (K1): rotating in place reuses the cached cut.
+(radians), ``w,h`` resolution, ``tau`` granularity, ``q`` JPEG quality
+(default the viewer's ``quality``, 85), as in the JAX viewer. A frame is
+``encode_jpeg(renderer.render(...), q)`` (``io/jpeg_encode.py``, the
+port's own encoder: the card's machine has no PIL), the bytes PIL's
+encoder gives the JAX viewer. The render path is the service's
+tau-budgeted, cut-cached pipeline (K1): rotating in place reuses the
+cached cut, and a repeated request (same pose and ``q``) the last frame's
+bytes.
 """
 from __future__ import annotations
 
@@ -29,14 +30,11 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from ..io.image import encode_png
+from ..io import jpeg_encode
 from ..scene.camera import look_at_camera
 from .service import HierarchyRenderer
 
 MAX_DIM = 4096  # reject absurd resolutions
-# zlib level of the frames: the fastest that compresses (a 1080p frame
-# takes most of its serving time in the encoder, PERF.md).
-PNG_LEVEL = 1
 
 _PAGE = """<!doctype html>
 <html><head><meta charset="utf-8"><title>h3dgs viewer</title>
@@ -132,11 +130,15 @@ class WebViewer:
     lock: the renderer's cut cache is single-slot)."""
 
     def __init__(self, renderer: HierarchyRenderer, host: str = "127.0.0.1",
-                 port: int = 8090, tau: float = 6.0):
+                 port: int = 8090, tau: float = 6.0, quality: int = 85):
         self.renderer = renderer
         self.tau = tau
+        self.quality = quality
+        # Build the C++ encoder now: a failed build stops the viewer here,
+        # and the first frame does not wait for the compiler.
+        jpeg_encode._native_encoder()
         self._lock = threading.Lock()
-        self._last_frame = None  # (request key, png bytes, stats)
+        self._last_frame = None  # (request key, jpeg bytes, stats)
         boxes = np.asarray(renderer.h.boxes)
         lo = boxes[:, 0].min(axis=0)
         hi = boxes[:, 1].max(axis=0)
@@ -216,13 +218,13 @@ class WebViewer:
             if not 0.0 < fovx < math.pi:
                 raise ValueError(f"fovx out of range: {fovx}")
             tau = f("tau", self.tau)
-            f("q", 85)           # the JPEG quality: checked, not used
+            quality = int(f("q", self.quality))
         except (ValueError, TypeError) as ex:
             req.send_error(400, str(ex)[:200])  # client error, not a 500
             return
         cam = look_at_camera(eye=eye, target=target, fovx=fovx,
                              width=w, height=h)
-        key = (eye, target, fovx, w, h, tau)
+        key = (eye, target, fovx, w, h, tau, quality)
         with self._lock:
             # Clients re-requesting the same pose get the cached frame:
             # identical frames are bit-identical.
@@ -230,9 +232,9 @@ class WebViewer:
                 _, body, stats = self._last_frame
             else:
                 img, stats = self.renderer.render(cam, tau=tau)
-                body = encode_png(img, PNG_LEVEL)
+                body = jpeg_encode.encode_jpeg(img, quality)
                 self._last_frame = (key, body, stats)
-        self._send(req, body, "image/png", (
+        self._send(req, body, "image/jpeg", (
             ("Cache-Control", "no-store"),
             ("X-Cut-Size", str(stats["cut_size"])),
             ("X-Cut-Reused", "1" if stats["cut_reused"] else "0"),

@@ -7,13 +7,14 @@ in the same order, the same pixel coordinates), on a scene with splats
 across band edges, one of them centred far above the band its footprint
 reaches, and a frame height that is not a multiple of ``bands x 16``; the
 full frame lies within 1/255 of the JAX single-device frame. Web: ``/``,
-``/info`` and ``/frame`` over HTTP; the PNG decodes to exactly
-``renderer.render(...)``, which lies within 1/255 of the JAX renderer's
-frame for the same camera.
+``/info`` and ``/frame`` over HTTP; each frame is PIL's JPEG of
+``renderer.render(...)`` at the request's ``q``, byte for byte, and the
+render lies within 1/255 of the JAX renderer's frame for the same camera.
 """
 from __future__ import annotations
 
 import http.client
+import io
 import json
 import os
 
@@ -21,11 +22,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from h3dgs_tpu.ops.rasterize import RasterizeConfig as JRasterCfg
 from h3dgs_tpu.ops.rasterize import rasterize as jrasterize
 from h3dgs_tpu.viewer.service import HierarchyRenderer as JRenderer
 from h3dgs_tpu_torch.io.image import decode_png
+from h3dgs_tpu_torch.io.jpeg import decode_jpeg
 from h3dgs_tpu_torch.ops import binning as tbin
 from h3dgs_tpu_torch.ops import projection as tproj
 from h3dgs_tpu_torch.ops.rasterize import rasterize as trasterize
@@ -145,8 +148,9 @@ def _get(conn, url):
 
 def test_web_viewer_frames(tmp_path):
     """``/``, ``/info``, ``/frame`` and its headers, the last-frame cache,
-    errors; the PNG decodes to ``renderer.render`` exactly, within 1/255
-    of the JAX renderer's frame for the same camera."""
+    errors; the JPEG at each ``q`` is PIL's JPEG of ``renderer.render``
+    byte for byte (the viewer's default quality 85 without ``q``), and the
+    render within 1/255 of the JAX renderer's frame for the same camera."""
     path, h = write_hier_pair(tmp_path, n=150, seed=3)
     r = tservice.HierarchyRenderer(path, budget=h.n_nodes, sh_degree=1,
                                    device="cpu")
@@ -168,30 +172,37 @@ def test_web_viewer_frames(tmp_path):
         assert len(info["center"]) == 3 and info["radius"] > 0
         c, rad = info["center"], info["radius"]
         frames = []
-        for k, (dx, tau) in enumerate(((0.0, 0.0), (0.4, 3.0), (0.4, 3.0))):
+        for dx, tau, q in ((0.0, 0.0, 50), (0.4, 3.0, None), (0.4, 3.0, None),
+                           (0.4, 3.0, 95)):
             eye = (c[0] + dx * rad, c[1], c[2] - rad)
             url = (f"/frame?ex={eye[0]}&ey={eye[1]}&ez={eye[2]}"
                    f"&tx={c[0]}&ty={c[1]}&tz={c[2]}&fovx=1.1&w=64&h=48"
-                   f"&tau={tau}&q={50 + k}")
+                   f"&tau={tau}" + ("" if q is None else f"&q={q}"))
             resp, body = _get(conn, url)
             assert resp.status == 200, body
-            assert resp.getheader("Content-Type") == "image/png"
-            img = decode_png(body)
+            assert resp.getheader("Content-Type") == "image/jpeg"
             jc, tc = camera_pair(eye, target=tuple(c), fovx=1.1, width=64,
                                  height=48)
             want, stats = check.render(tc, tau)
-            np.testing.assert_array_equal(img, want)
+            pil = io.BytesIO()
+            Image.fromarray(want).save(pil, "JPEG",
+                                       quality=85 if q is None else q)
+            assert body == pil.getvalue()
+            np.testing.assert_array_equal(decode_jpeg(body),
+                                          np.asarray(Image.open(pil)))
             assert int(resp.getheader("X-Cut-Size")) == stats["cut_size"]
             assert float(resp.getheader("X-Limit")) == pytest.approx(
                 stats["limit"], rel=1e-5)
             ja, _ = jr.render(jc, tau)
-            d = np.abs(img.astype(np.int32) - ja.astype(np.int32))
+            d = np.abs(want.astype(np.int32) - ja.astype(np.int32))
             assert d.max() <= 1, d.max()
-            assert img.max() > 0
+            assert want.max() > 0
             frames.append(body)
-        # The same pose again (q ignored): the cached bytes.
-        assert frames[2] == frames[1]
-        for bad in ("/frame?w=8&h=48", "/frame?fovx=4", "/frame?ex=nan"):
+        # The same pose and quality again: the cached bytes; another
+        # quality: another encode.
+        assert frames[2] == frames[1] != frames[3]
+        for bad in ("/frame?w=8&h=48", "/frame?fovx=4", "/frame?ex=nan",
+                    "/frame?q=nan"):
             resp, _ = _get(conn, bad)
             assert resp.status == 400, bad
         resp, _ = _get(conn, "/nothing")

@@ -67,6 +67,23 @@ def write_hier_pair(tmp_path, n=150, seed=0, sh_degree=1):
     return path, h
 
 
+def cut_progressive(img: np.ndarray, scans: int = 1, **kw) -> bytes:
+    """PIL's progressive JPEG of ``img`` cut after its first ``scans``
+    scans, EOI appended: a script that leaves coefficients unfinished
+    (libjpeg-turbo smooths such a file; the port refuses it)."""
+    import io
+
+    from PIL import Image
+
+    from h3dgs_tpu_torch.io import jpeg as tjpeg
+
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, "JPEG", progressive=True,
+                              **{"quality": 90, **kw})
+    full = b.getvalue()
+    return full[:tjpeg.parse_jpeg(full).scans[scans - 1].end] + b"\xff\xd9"
+
+
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT_DIR):

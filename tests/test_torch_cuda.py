@@ -704,7 +704,9 @@ def test_preprocess_imgproc_on_card_matches_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["view_420_1600x900.jpg", "gray_97x61.jpg",
                                   "adobe_rgb_97x61.jpg",
-                                  "cv2_411_rst_257x129.jpg"])
+                                  "cv2_411_rst_257x129.jpg",
+                                  "view_420_1600x900_progressive.jpg",
+                                  "progressive_cv2_440_rst_61x97.jpg"])
 def test_jpeg_views_reach_the_card(name):
     """The loader's views of committed JPEG fixtures (decoded by the
     port's own decoder) reach the card equal to their CPU bytes, as the

@@ -1,10 +1,14 @@
 """The port's JPEG decoder (``h3dgs_tpu_torch/io/jpeg.py``, C++ in
-``csrc/jpeg_decode.cpp``, numpy in ``decode_jpeg_plain``) against PIL and
-OpenCV, which decode with libjpeg-turbo for the JAX package: bit-equal on
-every kind of the fixture list at small sizes, the committed fixtures'
-digests, damaged and unsupported files, and the JAX package's JPEG reads
-(``load_view``, the Laplacian variance, the OpenCV loaders, one flat train
-step). Tolerances are stated per test."""
+``csrc/jpeg_decode.cpp``, numpy in ``decode_jpeg_plain``) and encoder
+(``io/jpeg_encode.py``, C++ in ``csrc/jpeg_encode.cpp``, numpy in
+``encode_jpeg_plain``) against PIL and OpenCV, which decode and encode
+with libjpeg-turbo for the JAX package: decodes bit-equal on every
+baseline and progressive kind of the fixture list at small sizes, encodes
+byte-equal at every quality, sampling and odd size, the committed
+fixtures' digests, damaged, unfinished and unsupported files, and the JAX
+package's JPEG reads (``load_view``, the Laplacian variance, the OpenCV
+loaders, one flat train step on a baseline and on a progressive view).
+Tolerances are stated per test."""
 from __future__ import annotations
 
 import hashlib
@@ -30,6 +34,7 @@ from h3dgs_tpu_torch.config import OptimizationConfig as TOptCfg
 from h3dgs_tpu_torch.io import exif as texif
 from h3dgs_tpu_torch.io import image as timage
 from h3dgs_tpu_torch.io import jpeg as tjpeg
+from h3dgs_tpu_torch.io import jpeg_encode as tenc
 from h3dgs_tpu_torch.model import state as tstate
 from h3dgs_tpu_torch.ops import rasterize as tras
 from h3dgs_tpu_torch.preprocess import chunk as tchunk
@@ -38,7 +43,7 @@ from h3dgs_tpu_torch.scene import dataset as tdataset
 from h3dgs_tpu_torch.scene import loader as tloader
 from h3dgs_tpu_torch.train import step as tstep
 
-from .test_torch_common import t_
+from .test_torch_common import cut_progressive, t_
 from .test_torch_train import (XCFG, JOptCfg, _assert_state_close,
                                _opt_arrays, _step_setup, _tstate_of, jadam)
 
@@ -67,10 +72,12 @@ def _pil_jpeg(img: np.ndarray, **kw) -> bytes:
     return b.getvalue()
 
 
-def _cv2_jpeg(img: np.ndarray, sampling: int) -> bytes:
+def _cv2_jpeg(img: np.ndarray, sampling: int,
+              progressive: bool = False) -> bytes:
     ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(img[..., ::-1]), [
         cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-        sampling, cv2.IMWRITE_JPEG_RST_INTERVAL, 2])
+        sampling, cv2.IMWRITE_JPEG_RST_INTERVAL, 2,
+        cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)])
     assert ok
     return buf.tobytes()
 
@@ -103,6 +110,30 @@ KINDS = {
         x, quality=90, exif=_exif(6, gps=True))),
     "dqt16_sof1": (3, lambda x: _pil_jpeg(
         x, qtables=[list(range(256, 320)), list(range(300, 364))])),
+}
+
+
+# progressive kind -> (channels, writer): PIL's and OpenCV's
+# jpeg_simple_progression scripts (YCbCr, gray, and RGB's own script)
+PROGRESSIVE_KINDS = {
+    "pil_444_q90": (3, lambda x: _pil_jpeg(x, quality=90, subsampling=0,
+                                           progressive=True)),
+    "pil_422_q50": (3, lambda x: _pil_jpeg(x, quality=50, subsampling=1,
+                                           progressive=True)),
+    "pil_420_q100": (3, lambda x: _pil_jpeg(x, quality=100, subsampling=2,
+                                            progressive=True)),
+    "pil_420_optimize": (3, lambda x: _pil_jpeg(x, quality=90, optimize=True,
+                                                progressive=True)),
+    "pil_420_restart": (3, lambda x: _pil_jpeg(x, quality=90,
+                                               restart_marker_blocks=2,
+                                               progressive=True)),
+    "cv2_411_restart": (3, lambda x: _cv2_jpeg(
+        x, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411, progressive=True)),
+    "cv2_440_restart": (3, lambda x: _cv2_jpeg(
+        x, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440, progressive=True)),
+    "gray": (1, lambda x: _pil_jpeg(x, quality=90, progressive=True)),
+    "adobe_rgb": (3, lambda x: _pil_jpeg(x, quality=90, keep_rgb=True,
+                                         progressive=True)),
 }
 
 
@@ -167,6 +198,108 @@ def test_decoder_random_sizes(seed):
         for got in _both(buf):
             np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(_cv2_rgb(buf), want)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (13, 17), (61, 97)])
+@pytest.mark.parametrize("kind", sorted(PROGRESSIVE_KINDS))
+def test_progressive_matches_pil_and_cv2(kind, size):
+    """Progressive files (SOF2: DC first and refine, AC first with EOB
+    runs, AC refine, restart intervals; interleaved DC scans and AC scans
+    over each component's own blocks): the C++ decoder and the plain
+    version bit-equal to PIL's array and to OpenCV's."""
+    channels, write = PROGRESSIVE_KINDS[kind]
+    rng = np.random.default_rng(sum(size) + 3 * len(kind))
+    buf = write(_texture(rng, *size, channels))
+    assert tjpeg.jpeg_info(buf)["sof"] == "progressive"
+    want = _pil_decode(buf)
+    native, plain = _both(buf)
+    np.testing.assert_array_equal(native, want)
+    np.testing.assert_array_equal(plain, want)
+    rgb = want if want.ndim == 3 else np.repeat(want[..., None], 3, -1)
+    np.testing.assert_array_equal(_cv2_rgb(buf), rgb)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_progressive_random_sizes(seed):
+    """Random sizes from 1 to 70 pixels a side, subsamplings, qualities
+    and restart intervals, progressive: both decoders bit-equal to PIL and
+    OpenCV."""
+    rng = np.random.default_rng(200 + seed)
+    for _ in range(3):
+        h, w = (int(v) for v in rng.integers(1, 71, 2))
+        buf = _pil_jpeg(rng.integers(0, 256, (h, w, 3)).astype(np.uint8),
+                        quality=int(rng.integers(20, 101)),
+                        subsampling=int(rng.integers(0, 3)),
+                        restart_marker_blocks=int(rng.integers(0, 4)),
+                        progressive=True)
+        want = _pil_decode(buf)
+        for got in _both(buf):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_cv2_rgb(buf), want)
+
+
+@pytest.mark.parametrize("scans", range(1, 10))
+def test_unfinished_progressive_is_refused(tmp_path, monkeypatch, scans):
+    """PIL's progressive 4:2:0 file (10 scans) cut after each of its first
+    9 scans: every cut leaves a coefficient of the first ten unfinished in
+    some component, which libjpeg-turbo smooths; the port refuses it from
+    both decoders (UnsupportedJpeg naming the file), ``read_image`` hands
+    it to PIL, and without PIL raises. The whole file decodes."""
+    img = _texture(np.random.default_rng(12), 29, 43)
+    cut = cut_progressive(img, scans)
+    full = _pil_jpeg(img, quality=90, progressive=True)
+    assert len(tjpeg.parse_jpeg(full).scans) == 10
+    for fn in (tjpeg.decode_jpeg, tjpeg.decode_jpeg_plain):
+        with pytest.raises(tjpeg.UnsupportedJpeg,
+                           match=r"cut\.jpg: progressive JPEG with "
+                                 "incomplete scans"):
+            fn(cut, "cut.jpg")
+    path = str(tmp_path / "cut.jpg")
+    with open(path, "wb") as f:
+        f.write(cut)
+    np.testing.assert_array_equal(timage.read_image(path), _pil_decode(cut))
+    np.testing.assert_array_equal(tjpeg.decode_jpeg(full), _pil_decode(full))
+    _hide_pil(monkeypatch)
+    with pytest.raises(ValueError, match="incomplete scans"):
+        timage.read_image(path)
+
+
+def _patch_scan(buf: bytes, index: int, ss=None, se=None, ah=None,
+                al=None) -> bytes:
+    """``buf`` with the band of its scan ``index`` rewritten."""
+    b = bytearray(buf)
+    at = -1
+    for _ in range(index + 1):
+        at = b.index(b"\xff\xda", at + 1)
+    ns = b[at + 4]
+    band = at + 5 + 2 * ns
+    b[band] = b[band] if ss is None else ss
+    b[band + 1] = b[band + 1] if se is None else se
+    old_ah, old_al = b[band + 2] >> 4, b[band + 2] & 15
+    b[band + 2] = ((old_ah if ah is None else ah) << 4) | (
+        old_al if al is None else al)
+    return bytes(b)
+
+
+@pytest.mark.parametrize("what", ["al", "se", "dc_band", "ah_chain"])
+def test_bad_progression(what):
+    """libjpeg's errors (an Al past 13, an AC band past 63, a DC scan with
+    an AC band) raise ValueError; a refinement from a bit that earlier
+    scans did not leave (libjpeg's warning) raises UnsupportedJpeg, which
+    hands the file to PIL where installed."""
+    full = _pil_jpeg(_texture(np.random.default_rng(13), 24, 32),
+                     quality=90, progressive=True)
+    if what == "ah_chain":      # scan 5 refines Y 1-63 from bit 2 to 1
+        buf = _patch_scan(full, 5, ah=3, al=2)
+        with pytest.raises(tjpeg.UnsupportedJpeg, match="refines"):
+            tjpeg.decode_jpeg(buf)
+        assert _pil_decode(buf).shape == (24, 32, 3)
+        return
+    buf = {"al": lambda: _patch_scan(full, 1, al=14),
+           "se": lambda: _patch_scan(full, 1, se=64),
+           "dc_band": lambda: _patch_scan(full, 0, se=5)}[what]()
+    with pytest.raises(ValueError, match="bad progressive scan"):
+        tjpeg.decode_jpeg(buf)
 
 
 def _bits(value: int, n: int):
@@ -306,8 +439,12 @@ def test_fixture_manifest_is_honest(name):
     """Each committed fixture decodes in PIL to its recorded digest and
     in the port to the same (the plain version too under 300x300); where
     OpenCV's default read differs (orientation), ``cv2.imread`` and
-    ``imgproc.load_bgr8`` give the recorded digest. The progressive one
-    is refused by the port and read by PIL."""
+    ``imgproc.load_bgr8`` give the recorded digest. The refused one (a
+    progressive file with unfinished scans) is refused by the port and
+    read by PIL. Each decoded fixture's JPEG at every recorded quality,
+    from PIL, from the C++ encoder and (under 300x300) the plain one,
+    has the recorded digest. The fixtures hold two 1600x900 views (a
+    baseline one and its progressive twin) and stay under 1.5 MiB."""
     entry = MANIFEST[name]
     path = os.path.join(FIXTURES, name)
     with open(path, "rb") as f:
@@ -317,20 +454,137 @@ def test_fixture_manifest_is_honest(name):
     assert _digest(want) == entry["pil_sha256"]
     info = tjpeg.jpeg_info(buf, name)
     assert (info["height"], info["width"]) == tuple(entry["shape"][:2])
-    if entry["progressive"]:
-        assert info["sof"] == "progressive"
-        with pytest.raises(tjpeg.UnsupportedJpeg, match="progressive"):
+    assert (info["sof"] == "progressive") == entry["progressive"]
+    if entry["refused"]:
+        with pytest.raises(tjpeg.UnsupportedJpeg, match="incomplete scans"):
             tjpeg.decode_jpeg(buf, name)
         assert _digest(timage.read_image(path)) == entry["pil_sha256"]
         return
     assert _digest(tjpeg.read_jpeg(path)) == entry["pil_sha256"]
-    if want.shape[0] * want.shape[1] < 300 * 300:
+    small = want.shape[0] * want.shape[1] < 300 * 300
+    if small:
         assert _digest(tjpeg.decode_jpeg_plain(buf)) == entry["pil_sha256"]
     if "cv2_bgr_sha256" in entry:
         assert _digest(cv2.imread(path)) == entry["cv2_bgr_sha256"]
         assert _digest(imgproc.load_bgr8(path)) == entry["cv2_bgr_sha256"]
+    for q, sha in entry["encoded_sha256"].items():
+        encoders = [lambda x, q: _pil_jpeg(x, quality=q), tenc.encode_jpeg]
+        for encode in encoders + ([tenc.encode_jpeg_plain] if small else []):
+            got = hashlib.sha256(encode(want, int(q))).hexdigest()
+            assert got == sha, (name, q, encode)
     assert sum(os.path.getsize(os.path.join(FIXTURES, n))
-               for n in os.listdir(FIXTURES)) <= 1 << 20
+               for n in os.listdir(FIXTURES)) <= 3 << 19
+
+
+def test_progressive_twin_decodes_to_the_view():
+    """The 1600x900 progressive twin decodes, in the port, to the pixels
+    of the baseline view it was made beside."""
+    twin, view = (tjpeg.read_jpeg(os.path.join(FIXTURES, n)) for n in (
+        "view_420_1600x900_progressive.jpg", "view_420_1600x900.jpg"))
+    np.testing.assert_array_equal(twin, view)
+
+
+# ------------------------------------------------------- the encoder ---
+
+QUALITIES = [1, 50, 75, 85, 95, 100]
+
+
+def _cv2_encode(img: np.ndarray, quality: int) -> bytes:
+    """OpenCV's JPEG (its default 4:2:0) of RGB or gray ``img``."""
+    bgr = img[..., ::-1] if img.ndim == 3 else img
+    ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(bgr),
+                           [cv2.IMWRITE_JPEG_QUALITY, quality])
+    assert ok
+    return buf.tobytes()
+
+
+@pytest.mark.parametrize("quality", QUALITIES)
+@pytest.mark.parametrize("size", [(1, 1), (13, 17), (17, 13), (16, 32),
+                                  (61, 97)])
+@pytest.mark.parametrize("gray", [False, True])
+def test_encoder_matches_pil_and_cv2(gray, size, quality):
+    """Byte-equal: the C++ encoder, the plain version, PIL's ``save(...,
+    "JPEG", quality=q)`` and ``cv2.imencode`` (RGB as YCbCr 4:2:0 with
+    dummy blocks past odd block counts, and gray), and the result decodes
+    in the port to PIL's decode."""
+    rng = np.random.default_rng(quality + 7 * size[0] + size[1] + gray)
+    img = _texture(rng, *size, 1 if gray else 3)
+    img = img[..., 0] if gray else img
+    want = _pil_jpeg(img, quality=quality)
+    assert _cv2_encode(img, quality) == want
+    assert tenc.encode_jpeg(img, quality) == want
+    assert tenc.encode_jpeg_plain(img, quality) == want
+    np.testing.assert_array_equal(tjpeg.decode_jpeg(want), _pil_decode(want))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_encoder_random_sizes(seed):
+    """Random sizes from 1 to 70 pixels a side, qualities and colour /
+    gray: C++ and plain byte-equal to PIL."""
+    rng = np.random.default_rng(300 + seed)
+    for _ in range(4):
+        h, w = (int(v) for v in rng.integers(1, 71, 2))
+        shape = (h, w) if rng.random() < 0.3 else (h, w, 3)
+        img = rng.integers(0, 256, shape).astype(np.uint8)
+        q = int(rng.integers(1, 101))
+        want = _pil_jpeg(img[..., None] if img.ndim == 2 else img,
+                         quality=q)
+        assert tenc.encode_jpeg(img, q) == want, (shape, q)
+        assert tenc.encode_jpeg_plain(img, q) == want, (shape, q)
+
+
+@pytest.mark.parametrize("quality", [-5, 0, 1, -1, 100, 101])
+def test_encoder_quality_clamps(quality):
+    """libjpeg's clamps as PIL passes them: q <= 0 is 1, q > 100 is 100,
+    and PIL's -1 is its default 75 (the same bytes as no quality)."""
+    img = _texture(np.random.default_rng(14), 21, 34)
+    want = _pil_jpeg(img, quality=quality)
+    same = {-5: 1, 0: 1, 1: 1, -1: 75, 100: 100, 101: 100}[quality]
+    assert want == _pil_jpeg(img, quality=same)
+    if quality == -1:
+        assert want == _pil_jpeg(img)
+    assert tenc.encode_jpeg(img, quality) == want
+    assert tenc.encode_jpeg_plain(img, quality) == want
+
+
+def test_encoder_without_a_compiler(monkeypatch):
+    """Where no C++ compiler is found, ``encode_jpeg`` runs the plain
+    version; the C++ encoder is built otherwise."""
+    img = _texture(np.random.default_rng(15), 23, 37)
+    native = tenc.encode_jpeg(img, 85)
+    assert tenc._native_encoder() is not None
+    monkeypatch.setattr(tenc, "_NATIVE", None)
+    monkeypatch.setattr("h3dgs_tpu_torch.native.compiler", lambda: None)
+    assert tenc._native_encoder() is None
+    assert tenc.encode_jpeg(img, 85) == native == _pil_jpeg(img, quality=85)
+
+
+@pytest.mark.parametrize("bad", ["float", "rgba", "empty", "wide"])
+def test_encoder_refuses_bad_input(bad):
+    """Samples other than uint8 [H, W, 3] / [H, W], and sizes JPEG cannot
+    hold, raise ValueError from both encoders."""
+    img = {"float": np.zeros((4, 4, 3), np.float32),
+           "rgba": np.zeros((4, 4, 4), np.uint8),
+           "empty": np.zeros((0, 4, 3), np.uint8),
+           "wide": np.zeros((1, 65501), np.uint8)}[bad]
+    for fn in (tenc.encode_jpeg, tenc.encode_jpeg_plain):
+        with pytest.raises(ValueError, match="encode_jpeg"):
+            fn(img)
+
+
+def test_write_image_jpeg_without_pil(tmp_path, monkeypatch):
+    """``write_image`` writes ``.jpg`` and ``.jpeg`` without PIL, the bytes
+    ``cv2.imwrite`` writes at its default quality (95); other formats but
+    PNG still need PIL."""
+    img = _texture(np.random.default_rng(16), 27, 45)
+    want = str(tmp_path / "cv2.jpg")
+    assert cv2.imwrite(want, np.ascontiguousarray(img[..., ::-1]))
+    _hide_pil(monkeypatch)
+    for name in ("a.jpg", "b.JPEG"):
+        timage.write_image(str(tmp_path / name), img)
+        assert (tmp_path / name).read_bytes() == open(want, "rb").read()
+    with pytest.raises(ValueError, match="only PNG and JPEG"):
+        timage.write_image(str(tmp_path / "c.bmp"), img)
 
 
 # ----------------------------------------------- damaged and refused ---
@@ -422,8 +676,8 @@ def test_unsupported_kinds_raise_without_pil(tmp_path, monkeypatch, what):
     rng = np.random.default_rng(5)
     img = _texture(rng, 24, 40)
     base = _pil_jpeg(img, quality=90)
-    if what == "progressive":
-        buf = _pil_jpeg(img, quality=90, progressive=True)
+    if what == "progressive":   # unfinished scans: libjpeg smooths them
+        buf = cut_progressive(img)
     elif what == "4 components":
         b = io.BytesIO()
         Image.fromarray(img).convert("CMYK").save(b, "JPEG", quality=90)
@@ -465,12 +719,13 @@ def test_baseline_never_goes_through_pil(tmp_path, monkeypatch):
 # ------------------------------------------------ the JAX package ---
 
 def _views(root: str, rng, wide: bool):
-    """JPEG views of four kinds and a JPEG mask: (image, mask) paths."""
+    """JPEG views of five kinds and a JPEG mask: (image, mask) paths."""
     w, h = (3200, 16) if wide else (48, 32)
     out = []
     for name, kw, channels in (("ycc420.jpg", {"quality": 90}, 3),
                                ("gray.jpg", {"quality": 90}, 1),
                                ("rgb.jpg", {"keep_rgb": True}, 3),
+                               ("progressive.jpg", {"progressive": True}, 3),
                                ("masked.jpg", {"subsampling": 1}, 3)):
         p = os.path.join(root, name)
         with open(p, "wb") as f:
@@ -494,9 +749,10 @@ def _infos(image_path: str, mask_path: str, w: int, h: int):
 @pytest.mark.parametrize("resolution", [1, 2, -1])
 def test_load_view_matches_jax(tmp_path, resolution):
     """``load_view`` of both packages on JPEG views (4:2:0, gray, Adobe
-    RGB, 4:2:2 with a JPEG mask): gt and alpha within 1e-6 (the scene
-    test's tolerance; resolution 2 and -1 at a width of 3200 resize by an
-    integer factor, where area resizing equals OpenCV's INTER_AREA)."""
+    RGB, progressive, 4:2:2 with a JPEG mask): gt and alpha within 1e-6
+    (the scene test's tolerance; resolution 2 and -1 at a width of 3200
+    resize by an integer factor, where area resizing equals OpenCV's
+    INTER_AREA)."""
     rng = np.random.default_rng(8)
     for image, mask in _views(str(tmp_path), rng, resolution == -1):
         h, w = _pil_decode(open(image, "rb").read()).shape[:2]
@@ -555,7 +811,7 @@ def test_imgproc_reads_match_cv2(tmp_path, kind, orientation):
         np.testing.assert_array_equal(got, want, err_msg=fn.__name__)
 
 
-def test_train_step_on_jpeg_view_matches_jax(tmp_path):
+def _train_step_on_jpeg(tmp_path, progressive: bool) -> None:
     """One flat train step of both packages on a view both loaders read
     from a 4:2:0 JPEG (with a JPEG mask): losses within 1e-5 and the
     state as ``test_torch_train.test_train_step_matches_jax`` holds it,
@@ -565,7 +821,10 @@ def test_train_step_on_jpeg_view_matches_jax(tmp_path):
     image = str(tmp_path / "view.jpg")
     mask = str(tmp_path / "mask.jpg")
     with open(image, "wb") as f:
-        f.write(_pil_jpeg(_texture(rng, 48, 64), quality=90))
+        f.write(_pil_jpeg(_texture(rng, 48, 64), quality=90,
+                          progressive=progressive))
+    assert (tjpeg.jpeg_info(open(image, "rb").read())["sof"]
+            == "progressive") == progressive
     m = np.where(_texture(rng, 48, 64, 1)[..., 0] > 40, 255, 0)
     with open(mask, "wb") as f:
         f.write(_pil_jpeg(m.astype(np.uint8)[..., None], quality=95))
@@ -592,3 +851,14 @@ def test_train_step_on_jpeg_view_matches_jax(tmp_path):
     assert int(tout.n_visible) == int(jout.n_visible) > 0
     _assert_state_close(tout.state, jout.state, rtol=1e-5, atol=2e-6,
                         fields=tstate.TENSOR_FIELDS)
+
+
+def test_train_step_on_jpeg_view_matches_jax(tmp_path):
+    """``_train_step_on_jpeg`` on a baseline view."""
+    _train_step_on_jpeg(tmp_path, progressive=False)
+
+
+def test_train_step_on_progressive_view_matches_jax(tmp_path):
+    """``_train_step_on_jpeg`` on a progressive view (the JAX loader reads
+    it through PIL, the port through its own decoder)."""
+    _train_step_on_jpeg(tmp_path, progressive=True)

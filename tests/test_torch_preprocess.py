@@ -51,7 +51,7 @@ from h3dgs_tpu_torch.preprocess import reorient as treorient
 from h3dgs_tpu_torch.preprocess import simplify as tsimplify
 from h3dgs_tpu_torch.preprocess import transform as ttransform
 
-from .test_torch_common import PORT_DIR, REPO
+from .test_torch_common import PORT_DIR, REPO, cut_progressive
 
 torch.set_num_threads(2)
 
@@ -247,12 +247,14 @@ def test_resize_nearest_matches_cv2(src, dst):
 
 
 def test_undecodable_image_raises(tmp_path, monkeypatch):
-    """A JPEG the port does not read (progressive), with PIL unimportable,
-    raises with the file's name, from the loaders, the Laplacian and the
-    depth map reader: it is not read as a missing file (which gives 0.0 /
-    None)."""
+    """A JPEG the port does not read (progressive with unfinished scans),
+    with PIL unimportable, raises with the file's name, from the loaders,
+    the Laplacian and the depth map reader: it is not read as a missing
+    file (which gives 0.0 / None)."""
     path = str(tmp_path / "view.jpg")
-    Image.new("RGB", (16, 12), (40, 80, 120)).save(path, progressive=True)
+    with open(path, "wb") as f:
+        f.write(cut_progressive(np.full((12, 16, 3), (40, 80, 120),
+                                        np.uint8)))
     monkeypatch.setitem(sys.modules, "PIL", None)
     for fn in (imgproc.load_bgr8, imgproc.load_unchanged,
                imgproc.load_gray8):
@@ -453,8 +455,11 @@ def test_masks_uint8_match_jax(tmp_path, erode):
 
 def test_black_mask_matches_jax(tmp_path):
     """8-bit and 16-bit RGBA images; a mask of the image's size, one of
-    another size (nearest resize), an RGB mask (libpng's gray); an image
-    without a mask stays untouched."""
+    another size (nearest resize), an RGB mask (libpng's gray); JPEG
+    images (``.jpg`` and ``.jpeg``, one with EXIF orientation 6, which
+    OpenCV turns upright and writes back without EXIF) come back byte for
+    byte as ``cv2.imwrite`` writes them; an image without a mask stays
+    untouched."""
     rng = np.random.default_rng(5)
     images = tmp_path / "images"
     masks = tmp_path / "masks"
@@ -467,6 +472,16 @@ def test_black_mask_matches_jax(tmp_path):
     write_png(str(masks / "sub" / "b.png"),
               rng.integers(0, 256, (13, 57)).astype(np.uint8))
     write_png_rgb(masks / "c.png", rng, "rgb", 30, 40)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    for rel, kw in (("e.jpg", {}), ("sub/f.jpg", {"exif": exif.tobytes()}),
+                    ("g.jpeg", {"quality": 75}), ("h.jpg", {})):
+        jpg = textured(rng, 30, 42, blur=1).astype(np.uint8)
+        Image.fromarray(jpg).save(images / rel, "JPEG", **kw)
+    for rel, shape in (("e.png", (30, 42)), ("sub/f.png", (13, 57)),
+                       ("g.png", (30, 42))):
+        write_png(str(masks / rel),
+                  (rng.uniform(size=shape) > 0.4).astype(np.uint8) * 255)
     runs = {}
     for pkg, fn, extra in (("jax", jmasks.black_mask_images, {}),
                            ("torch", tmasks.black_mask_images,
@@ -474,10 +489,14 @@ def test_black_mask_matches_jax(tmp_path):
         dst = tmp_path / pkg
         shutil.copytree(images, dst)
         runs[pkg] = fn(str(dst), str(masks), **extra)
-    assert runs["jax"] == runs["torch"] == 3
+    assert runs["jax"] == runs["torch"] == 6
     assert_trees_equal(str(tmp_path / "jax"), str(tmp_path / "torch"))
     assert np.array_equal(cv2.imread(str(tmp_path / "torch" / "d.png")),
                           cv2.imread(str(images / "d.png")))
+    assert (tmp_path / "torch" / "h.jpg").read_bytes() == \
+        (images / "h.jpg").read_bytes()
+    assert cv2.imread(str(tmp_path / "torch" / "sub" / "f.jpg")).shape == \
+        (42, 30, 3)
 
 
 # --------------------------------------------------------- host modules ---
@@ -849,9 +868,9 @@ def test_drivers_run_exits_on_failure(tmp_path, capsys):
 
 def test_port_imports_no_opencv():
     """No module of the port, nor chip_smoke.py, imports cv2; the
-    preprocessing modules, the EXIF reader, the JPEG decoder and
-    chip_smoke.py import no PIL either (PIL stays behind
-    ``io/image.py``)."""
+    preprocessing modules, the EXIF reader, the JPEG decoder and encoder,
+    the web viewer and chip_smoke.py import no PIL either (PIL stays
+    behind ``io/image.py``)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT_DIR):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
@@ -871,6 +890,8 @@ def test_port_imports_no_opencv():
                         path.startswith(no_pil) or path.endswith((
                             os.path.join("io", "exif.py"),
                             os.path.join("io", "jpeg.py"),
+                            os.path.join("io", "jpeg_encode.py"),
+                            os.path.join("viewer", "web.py"),
                             "chip_smoke.py")))):
                     bad.append(f"{os.path.relpath(path, REPO)}:"
                                f"{node.lineno} imports {name}")

@@ -42,7 +42,7 @@ from h3dgs_tpu_torch.viewer.network_gui import NetworkGUI
 
 from .synthetic_scene import make_gaussian_scene, ring_cameras, \
     write_colmap_scene
-from .test_torch_common import np_
+from .test_torch_common import cut_progressive, np_
 
 torch.set_num_threads(2)
 
@@ -161,9 +161,11 @@ def test_png_unfilter_native_and_plain(tmp_path, monkeypatch, ctype, depth):
 
 def test_read_image_without_pil_names_the_file(tmp_path, monkeypatch):
     """Without PIL a baseline JPEG is read by the port's own decoder, and a
-    progressive one (which only PIL reads) raises naming the file."""
+    progressive one with unfinished scans (which only PIL reads) raises
+    naming the file."""
     p = str(tmp_path / "photo.jpg")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(p, progressive=True)
+    with open(p, "wb") as f:
+        f.write(cut_progressive(np.zeros((8, 8, 3), np.uint8)))
     q = str(tmp_path / "base.jpg")
     Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(q)
     np.testing.assert_array_equal(timage.read_image(p).shape, (8, 8, 3))
