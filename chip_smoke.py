@@ -46,7 +46,14 @@ port's own decoder and re-encoded by its own encoder against their
 manifest's digests, the training chunk trained on its 24 views read from
 the 1600x900 JPEG fixture, from its progressive twin and from its PNG
 twin, and the host's decode and encode rates; the browser viewer's
-frames are the port's JPEGs.
+frames are the port's JPEGs. Views as the JAX package sees them: the
+committed fixtures of ``tests/data/torch_png`` (every PNG kind, Adam7
+included, under the five read contracts of the JAX package's callers,
+and OpenCV's INTER_AREA resize cases) against their manifest, the
+training chunk trained on its views enlarged to 2000x1125 (shrunk by
+1.25 at load) with 1-bit and palette masks and half-size depth maps (one
+gray+alpha, one missing), and on 4032x3024 views, with ``load_view``'s
+rate on those against the old area pooling.
 
 Phases, each failing the run with its traceback:
   1. card name and power limit (nvidia-smi); fails without CUDA;
@@ -78,6 +85,15 @@ Phases, each failing the run with its traceback:
      pixels) and on its PNG twin (medians side by side), and the decode
      rates at 1600x900: one thread, ``load_view`` in 8 threads and the
      Laplacian pass; the encode's one-thread ms at 1600x900;
+     then the views phase: every PNG fixture under five contracts at its
+     manifest digest (C++ and plain unfilter) and every resize case at
+     its tolerance (C++ and plain), ``train_single`` counted for 30
+     iterations on 2000x1125 views with 1-bit and palette masks and
+     half-size depths (one gray+alpha, one missing; each view loaded back
+     and checked), ``load_view`` views/s in 8 threads on 4032x3024 PNG
+     and JPEG views with ``resize_area`` and with the old pooling, and
+     ``train_single`` counted for 30 iterations on 4032x3024 views, its
+     median step beside the 1600x900 PNG views';
   8. a 4-view dp step's gradients against the mean of 4 single-view
      gradients; the busy share of a 4-view step; the trained state saved
      and loaded in the ``.pt`` format; the fused-loss training path,
@@ -269,6 +285,12 @@ JPEG_PLAIN_MAX = 300 * 300      # the plain decoder runs below this area
 JPEG_ITERS = 30
 JPEG_DECODE_REPS = 10
 JPEG_LOADER_VIEWS = 120         # load_view calls per rate, in 8 threads
+PNG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "data", "torch_png")
+VIEWS_ITERS = 30
+VIEWS_W, VIEWS_H = 2000, 1125   # -r -1 shrinks them by 1.25 to 1600x900
+BIG_W, BIG_H = 4032, 3024       # a phone's photograph
+VIEWS_LOADER = 24               # load_view calls per rate, in 8 threads
 # The calibration recovers 1/a and -b/a up to the maps' 16-bit rounding
 # (1.5e-5 against values spread over ~0.3) and the replicated border
 # column; the CPU path's samples differ from the card's by FMA rounding
@@ -1635,7 +1657,9 @@ def training_phase(tmp: str, rng, look_at_camera):
     assert counts_f["ssim"] >= FUSED_ITERS, counts_f
     del rec_f
     torch.cuda.empty_cache()
-    jpeg_counts = jpeg_phase(tmp, src, base)
+    jpeg_counts, medians = jpeg_phase(tmp, src, base)
+    torch.cuda.empty_cache()
+    views_counts = views_phase(tmp, src, base, medians["PNG"])
     torch.cuda.empty_cache()
     dp_counts = dp_train_phase(tmp, base, one_view_ms)
     torch.cuda.empty_cache()
@@ -1643,7 +1667,7 @@ def training_phase(tmp: str, rng, look_at_camera):
     torch.cuda.empty_cache()
     eval_counts = eval_phase(tmp, out, src, sc_dir, look_at_camera)
     return ({"train": counts, "fused": counts_f, **jpeg_counts,
-             **dp_counts, **post_counts, **eval_counts}, k2_inputs)
+             **views_counts, **dp_counts, **post_counts, **eval_counts}, k2_inputs)
 
 
 def jpeg_exactness() -> None:
@@ -1781,7 +1805,8 @@ def jpeg_phase(tmp: str, src: str, base) -> dict:
     the same pixels) and from its PNG twin (the decoded pixels as libpng
     filters them), each counted (losses finite, K1 and K2 once per step);
     the host's decode rates of the three, and the one-thread encode of
-    the view at q 85 and 95. Returns the runs' launch counts."""
+    the view at q 85 and 95. Returns the runs' launch counts and median
+    step ms."""
     from h3dgs_tpu_torch.io.image import read_png
     from h3dgs_tpu_torch.io.jpeg import jpeg_info, read_jpeg
 
@@ -1843,6 +1868,292 @@ def jpeg_phase(tmp: str, src: str, base) -> dict:
         f"({card_line()}): q 85 {enc[85]:.2f} ms, q 95 {enc[95]:.2f} ms "
         f"(median of {JPEG_DECODE_REPS}, in turns)")
     log(f"JPEG phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts, medians
+
+
+def png_exactness() -> None:
+    """Every committed PNG fixture (``tests/data/torch_png``: every kind,
+    non-interlaced and Adam7, and files PIL and OpenCV wrote) decoded by
+    the port under the five contracts of the JAX package's callers
+    (``read_image`` as PIL's array and as its RGB conversion, and
+    ``imgproc``'s three ``cv2.imread`` loaders) to the manifest's
+    digests, through the C++ unfilter and again through the plain one;
+    then every committed resize case within its stated tolerance of
+    ``cv2.resize(INTER_AREA)``, in C++ and in the plain version."""
+    import hashlib
+
+    from h3dgs_tpu_torch.io import image as timage
+    from h3dgs_tpu_torch.preprocess import imgproc
+
+    def digest(a):
+        head = f"{a.dtype.str}{a.shape}".encode()
+        a = np.ascontiguousarray(a, np.uint8 if a.dtype == bool else a.dtype)
+        return hashlib.sha256(head + a.tobytes()).hexdigest()
+
+    readers = {"pil_array": timage.read_image,
+               "pil_rgb": lambda p: timage.read_image(p, "rgb"),
+               "cv2_unchanged": imgproc.load_unchanged,
+               "cv2_color": imgproc.load_bgr8,
+               "cv2_gray": imgproc.load_gray8}
+    with open(os.path.join(PNG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    assert timage._native_unfilter() is not None, "no C++ PNG unfilter"
+    assert imgproc._native_resize() is not None, "no C++ area resize"
+    n_png, errs = 0, {}
+    for plain in (False, True):
+        unfilter, resize = timage._NATIVE, imgproc._NATIVE
+        if plain:           # False: the plain versions, as without g++
+            timage._NATIVE = imgproc._NATIVE = False
+        try:
+            for name, entry in sorted(manifest["png"].items()):
+                path = os.path.join(PNG_DIR, name)
+                for key, read in readers.items():
+                    assert digest(read(path)) == entry[key], \
+                        f"{name}: {key} differs (plain {plain})"
+                    n_png += 1
+            for name, entry in sorted(manifest["resize"].items()):
+                src = np.load(os.path.join(PNG_DIR, entry["src"]))
+                want = np.load(os.path.join(PNG_DIR, entry["want"]))
+                got = imgproc.resize_area(torch.from_numpy(src),
+                                          *want.shape[:2]).numpy()
+                assert got.shape == want.shape, (name, got.shape)
+                err = float(np.abs(got - want).max())
+                assert err <= entry["atol"], (name, plain, err)
+                errs[name] = max(errs.get(name, 0.0), err)
+        finally:
+            timage._NATIVE, imgproc._NATIVE = unfilter, resize
+    log(f"PNG exactness: {len(manifest['png'])} fixtures x "
+        f"{len(readers)} contracts at the manifest's digests through the "
+        f"C++ and the plain unfilter ({n_png} arrays); "
+        f"{len(manifest['resize'])} area resizes against cv2.resize "
+        f"(C++ and plain), largest distance {max(errs.values())} "
+        f"(tolerance 0)")
+
+
+def _old_resize(arr, w: int, h: int):
+    """The port's area resize before OpenCV's INTER_AREA was followed:
+    torch's adaptive average pooling (equal to OpenCV at integer factors
+    only); kept here as the baseline of the loader's rate."""
+    import torch.nn.functional as F
+
+    if arr.shape[1] == w and arr.shape[0] == h:
+        return arr
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    chw = t[None, None] if t.dim() == 2 else t.permute(2, 0, 1)[None]
+    out = F.interpolate(chw, size=(h, w), mode="area")[0]
+    return (out[0] if t.dim() == 2 else out.permute(1, 2, 0)).numpy()
+
+
+def _enlarged(img, h: int, w: int):
+    """[H, W, C] or [H, W] uint8 / uint16 -> the same at (h, w) through
+    ``resize_area`` (OpenCV's INTER_AREA), rounded."""
+    from h3dgs_tpu_torch.preprocess.imgproc import resize_area
+
+    top = np.iinfo(img.dtype).max
+    x = resize_area(torch.from_numpy(img.astype(np.float32)), h, w)
+    return np.clip(np.rint(x.numpy()), 0, top).astype(img.dtype)
+
+
+def write_views_chunk(root: str, src: str) -> dict:
+    """The training chunk ``src`` again under ``root``, with views, masks
+    and depth maps of the kinds the loader repairs: each view enlarged to
+    VIEWS_W x VIEWS_H (``-r -1`` shrinks it by 1.25, a non-integer
+    factor); a 1-bit mask (even views) or a 2-bit palette mask with tRNS
+    (odd views), a disc cut out of each; the 16-bit inverse depths at half
+    size (enlarged at load), view 1's as gray+alpha, view 2's missing.
+    Cameras, points and depth params are linked. Returns the names of
+    the special views."""
+    import concurrent.futures as cf
+
+    from h3dgs_tpu_torch.io.image import encode_png_samples, read_png, \
+        write_png
+
+    sparse, src_sparse = (os.path.join(d, "sparse", "0") for d in (root, src))
+    os.makedirs(sparse)
+    for d in ("images", "masks", "depths"):
+        os.makedirs(os.path.join(root, d))
+    for f in ("cameras.bin", "images.bin", "points3D.bin",
+              "depth_params.json"):
+        os.link(os.path.join(src_sparse, f), os.path.join(sparse, f))
+    names = sorted(os.listdir(os.path.join(src, "images")))
+    yy, xx = np.mgrid[:VIEWS_H, :VIEWS_W]
+    ga_view, missing = names[1], names[2]
+
+    def one(i: int) -> None:
+        name = names[i]
+        img = read_png(os.path.join(src, "images", name))
+        write_png(os.path.join(root, "images", name),
+                  _enlarged(img, VIEWS_H, VIEWS_W), level=1)
+        cy = int(VIEWS_H * (0.2 + 0.6 * i / len(names)))
+        cx = int(VIEWS_W * (0.15 + 0.7 * i / len(names)))
+        r = VIEWS_H / 8
+        r2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        if i % 2 == 0:
+            body = encode_png_samples((r2 > r * r).astype(np.uint8), 1, 0)
+        else:
+            idx = np.where(r2 > (1.2 * r) ** 2, 3,
+                           np.where(r2 > (0.8 * r) ** 2, 2, 0))
+            body = encode_png_samples(
+                idx.astype(np.uint8), 2, 3,
+                [[0, 0, 0], [90, 90, 90], [170, 40, 40], [255, 255, 255]],
+                [0, 128])
+        with open(os.path.join(root, "masks", name), "wb") as f:
+            f.write(body)
+        if name == missing:
+            return
+        depth = _enlarged(read_png(os.path.join(src, "depths", name)),
+                          TRAIN_H // 2, TRAIN_W // 2)
+        if name == ga_view:
+            depth = np.stack([depth, np.full_like(depth, 65535)], -1)
+        write_png(os.path.join(root, "depths", name), depth, level=1)
+
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(one, range(len(names))))
+    return {"ga": ga_view, "missing": missing}
+
+
+def big_chunk(root: str, src: str, image: str, ext: str) -> None:
+    """``linked_chunk`` on a BIG_W x BIG_H view, with the cameras'
+    intrinsics scaled to that size on each axis (a camera that sees the
+    stretched view), so that ``-r -1`` trains at 1600 x 1200."""
+    import dataclasses
+
+    from h3dgs_tpu_torch.io import colmap as colmap_io
+
+    linked_chunk(root, src, image, ext)
+    path = os.path.join(root, "sparse", "0", "cameras.bin")
+    cams = colmap_io.read_cameras_binary(path)
+    os.remove(path)
+    sx, sy = BIG_W / TRAIN_W, BIG_H / TRAIN_H
+    colmap_io.write_cameras_binary(path, {
+        k: dataclasses.replace(c, width=BIG_W, height=BIG_H,
+                               params=c.params * [sx, sy, sx, sy])
+        for k, c in cams.items()})
+
+
+def loader_rates(infos) -> dict:
+    """``load_view(info, -1)`` views/s in 8 threads (as the view stream
+    runs it) over VIEWS_LOADER calls, with the loader's resize as it is
+    ("new") and as it was (``_old_resize``, "old"), in the order old,
+    new, new, old; the mean of each pair."""
+    import concurrent.futures as cf
+
+    from h3dgs_tpu_torch.scene import loader
+
+    views = [infos[j % len(infos)] for j in range(VIEWS_LOADER)]
+    new = loader._resize
+    rates = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        loader._resize = _old_resize if which == "old" else new
+        try:
+            t0 = time.perf_counter()
+            with cf.ThreadPoolExecutor(max_workers=8) as pool:
+                n = sum(1 for _ in pool.map(
+                    lambda v: loader.load_view(v, -1), views))
+            rates[which].append(n / (time.perf_counter() - t0))
+        finally:
+            loader._resize = new
+    return {k: float(np.mean(v)) for k, v in rates.items()}
+
+
+def train_views(root: str, base, name: str, extra=()):
+    """``train_single`` for VIEWS_ITERS iterations on the chunk at
+    ``root``, counted: losses finite, K1 and K2 at least once per step.
+    Returns (median step ms, counts, the scene's train cameras)."""
+    argv = ["-s", root] + base[2:] + list(extra) + [
+        "-m", root + "_model", "--iterations", str(VIEWS_ITERS)]
+    rec, c = counted(run_train_cli, argv)
+    photo = rec["photo"]
+    assert len(photo) == VIEWS_ITERS, len(photo)
+    assert all(math.isfinite(x) for x in photo + rec["depth"]), photo
+    assert c["blend_fwd"] >= VIEWS_ITERS and \
+        c["blend_bwd"] >= VIEWS_ITERS, c
+    median = float(np.median(steady_ms(rec)[0]))
+    log(f"train_single on {TRAIN_VIEWS} {name} ({VIEWS_ITERS} iterations): "
+        f"photo loss first {photo[0]:.5f}, last {photo[-1]:.5f}, median "
+        f"step {median:.3f} ms (CUDA events, iterations 6-{VIEWS_ITERS}); "
+        f"kernel launches {c}")
+    return median, c, rec["scene"].info.train_cameras
+
+
+def views_phase(tmp: str, src: str, base, png_median: float) -> dict:
+    """The views' pixels as the JAX package sees them, on the card's
+    machine (no PIL, no OpenCV): ``png_exactness``; then ``train_single``
+    counted on the chunk with enlarged views, 1-bit and palette masks and
+    half-size depths (one gray+alpha, one missing:
+    ``write_views_chunk``), every repaired branch of the loader checked on
+    its views; ``load_view`` views/s in 8 threads on BIG_W x BIG_H views
+    (PNG and JPEG) with the new and the old resize; and ``train_single``
+    counted on BIG_W x BIG_H PNG views, its median step beside the
+    1600x900 PNG views' (``png_median``). Returns the runs' counts."""
+    import dataclasses
+
+    from h3dgs_tpu_torch.io.image import read_png, write_png
+    from h3dgs_tpu_torch.io.jpeg_encode import write_jpeg
+    from h3dgs_tpu_torch.scene.loader import _resolution, load_view
+
+    t_phase = time.perf_counter()
+    png_exactness()
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "chunk_views")
+    special = write_views_chunk(root, src)
+    log(f"views chunk written in {time.perf_counter() - t0:.1f} s: "
+        f"{TRAIN_VIEWS} views {VIEWS_W}x{VIEWS_H}, 1-bit and 2-bit palette "
+        f"masks, depths {TRAIN_W // 2}x{TRAIN_H // 2} ({special['ga']} "
+        f"gray+alpha, {special['missing']} missing)")
+    counts = {}
+    med_views, counts["enlarged views"], infos = train_views(
+        root, base, f"{VIEWS_W}x{VIEWS_H} masked views",
+        ["--alpha_masks", "masks"])
+    by_name = {os.path.basename(v.image_path): v for v in infos}
+    w, h = _resolution(VIEWS_W, VIEWS_H, -1)
+    for name, v in by_name.items():
+        b = load_view(v, -1)
+        assert b.gt_image.shape == (3, h, w), b.gt_image.shape
+        assert b.alpha_mask.min() == 0 and b.alpha_mask.max() > 0.999, \
+            name
+        assert bool(b.depth_reliable) == (name != special["missing"]), name
+        assert b.invdepth.any() == (name != special["missing"]), name
+    ref = _enlarged(read_png(os.path.join(src, "images", os.path.basename(
+        infos[0].image_path))), h, w).astype(np.float32) / 255
+    back = load_view(infos[0], -1)
+    gap = float(np.abs(back.gt_image - ref.transpose(2, 0, 1)
+                       * back.alpha_mask).mean())
+    assert gap < 0.02, gap
+    log(f"  views loaded back at {w}x{h}: masks 0..1, depth "
+        f"on every view but {special['missing']}; mean distance of a "
+        f"view enlarged to {VIEWS_W}x{VIEWS_H} and shrunk back from its "
+        f"source {gap:.5f}")
+
+    t0 = time.perf_counter()
+    pixels = _enlarged(read_png(os.path.join(src, "images",
+                                             sorted(by_name)[0])),
+                       BIG_H, BIG_W)
+    big = {"PNG": os.path.join(tmp, "big.png"),
+           "JPEG": os.path.join(tmp, "big.jpg")}
+    write_png(big["PNG"], pixels, level=1)
+    write_jpeg(big["JPEG"], pixels, 95)
+    big_root = os.path.join(tmp, "chunk_big")
+    big_chunk(big_root, src, big["PNG"], "png")
+    big_w, big_h = _resolution(BIG_W, BIG_H, -1)
+    log(f"{BIG_W}x{BIG_H} views written in {time.perf_counter() - t0:.1f} s")
+    med_big, counts["big views"], big_infos = train_views(
+        big_root, base, f"{BIG_W}x{BIG_H} PNG views")
+    for kind, path in big.items():
+        r = loader_rates([dataclasses.replace(v, image_path=path)
+                          for v in big_infos])
+        log(f"  load_view of {BIG_W}x{BIG_H} {kind} views at -r -1 (-> "
+            f"{big_w}x{big_h}, with a {TRAIN_W}x"
+            f"{TRAIN_H} depth map) in 8 threads on the host "
+            f"({card_line()}): {r['new']:.2f} views/s with resize_area, "
+            f"{r['old']:.2f} with the old area pooling ({VIEWS_LOADER} "
+            f"views a pass, old/new/new/old)")
+    log(f"flat median step, one call ({card_line()}): {TRAIN_W}x{TRAIN_H} "
+        f"PNG views {png_median:.3f} ms, {VIEWS_W}x{VIEWS_H} masked views "
+        f"{med_views:.3f} ms ({med_views / png_median:.3f}x), "
+        f"{BIG_W}x{BIG_H} PNG views (trained at {big_w}x{big_h}) "
+        f"{med_big:.3f} ms ({med_big / png_median:.3f}x)")
+    log(f"views phase: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3454,7 +3765,8 @@ def main() -> int:
         "(its image work is plain torch)")
     dp_views = DP_VIEWS * (DP_ITERS + DP_FUSED_ITERS + DP_POST_ITERS)
     jpeg_views = 3 * JPEG_ITERS         # JPEG, progressive and PNG views
-    views = (TRAIN_ITERS + FUSED_ITERS + jpeg_views + POST_ITERS
+    kind_views = 2 * VIEWS_ITERS        # enlarged masked views, 4032x3024
+    views = (TRAIN_ITERS + FUSED_ITERS + jpeg_views + kind_views + POST_ITERS
              + POST_RESUMED + POST_FUSED_ITERS + dp_views)
     fused_views = FUSED_ITERS + POST_FUSED_ITERS + DP_VIEWS * DP_FUSED_ITERS
     eval_frames = TRAIN_VIEWS * len(EVAL_TAUS)
@@ -3465,7 +3777,9 @@ def main() -> int:
         f"frames, {n_bands} bands, {N_WEB} web frames, {views} training "
         f"views ({dp_views} of them {DP_VIEWS} a step, {fused_views} with "
         f"the fused loss, {jpeg_views} read from baseline and progressive "
-        f"JPEG files and PNG twins), {eval_frames} evaluation frames, 1 "
+        f"JPEG files and PNG twins, {kind_views} from enlarged views with "
+        f"1-bit and palette masks and from {BIG_W}x{BIG_H} views), "
+        f"{eval_frames} evaluation frames, 1 "
         f"render call)")
     assert total["blend_fwd"] >= (frames + n_bands + N_WEB + views
                                   + eval_frames + 1), total

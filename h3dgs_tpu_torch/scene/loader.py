@@ -4,12 +4,23 @@
 A small thread pool decodes views ahead while the card trains on the
 previous one; pixel preprocessing (resolution policy, alpha masking,
 exposure-eval half-masking, mono-depth scaling + reliability) follows the
-reference. Images are read with ``io/image.py`` (PNG and baseline JPEG
-without any library, as stored: no EXIF rotation, as PIL gives the JAX
-loader; other formats through PIL) and resized on the host with
-``torch.nn.functional.interpolate(mode="area")``: equal to OpenCV's
-INTER_AREA, which the JAX loader uses, at integer downscale factors; at
-other factors the two differ by up to a few 1/255 per value.
+reference. Each file is read as the JAX loader reads it, by the port's own
+decoders (``io/image.py``: PNG of every kind and the JPEG kinds of
+``io/jpeg.py``, as stored, no EXIF rotation; other formats through PIL):
+
+- the view as PIL's ``convert("RGBA" if mode == "RGBA" else "RGB")``
+  gives it, divided by 255 (a 16-bit gray view is clipped at 255 by PIL,
+  so it reads almost white: H22 in ``ROADMAP.md``; the port follows);
+- the mask as ``np.asarray(PIL.Image.open(path))`` (1-bit -> 0/1, palette
+  -> its indices), divided by its largest value;
+- the depth map as ``cv2.imread(path, -1)`` (``imgproc.load_unchanged``:
+  BGR(A) order, gray+alpha as 4 channels, channel 0 kept after the
+  resize); a missing depth file leaves the view without depth, and a file
+  that exists but cannot be decoded raises with its name.
+
+All three are resized on the host by ``imgproc.resize_area``, OpenCV's
+INTER_AREA, equal to ``cv2.resize`` bit for bit at every factor but
+integer shrinks (within 1e-6 there).
 """
 from __future__ import annotations
 
@@ -18,9 +29,9 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..io.image import read_image
+from ..preprocess.imgproc import load_unchanged, resize_area
 from ..train.step import ViewBatch
 from .camera import make_camera
 from .dataset import CameraInfo
@@ -42,29 +53,10 @@ def _resolution(orig_w: int, orig_h: int, resolution: int,
 
 
 def _resize(arr: np.ndarray, w: int, h: int) -> np.ndarray:
-    """[H, W] or [H, W, C] float32 -> the same at (h, w), area-averaged."""
-    if arr.shape[1] == w and arr.shape[0] == h:
-        return arr
-    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-    chw = t[None, None] if t.dim() == 2 else t.permute(2, 0, 1)[None]
-    out = F.interpolate(chw, size=(h, w), mode="area")[0]
-    out = out[0] if t.dim() == 2 else out.permute(1, 2, 0)
-    return out.numpy()
-
-
-def _to_float(img: np.ndarray) -> np.ndarray:
-    scale = 65535.0 if img.dtype == np.uint16 else 255.0
-    return img.astype(np.float32) / scale
-
-
-def _rgb_or_rgba(img: np.ndarray) -> np.ndarray:
-    """Decoded pixels -> [H, W, 3] or [H, W, 4] (what PIL's
-    convert("RGBA" if RGBA else "RGB") gives the JAX loader)."""
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=2)
-    if img.shape[2] == 2:                        # gray + alpha -> RGB
-        return np.repeat(img[..., :1], 3, axis=2)
-    return img
+    """[H, W] or [H, W, C] float32 -> the same at (h, w), by OpenCV's
+    INTER_AREA (``resize_area``)."""
+    return resize_area(torch.from_numpy(
+        np.ascontiguousarray(arr, np.float32)), h, w).numpy()
 
 
 def load_view(info: CameraInfo, resolution: int = -1,
@@ -73,11 +65,11 @@ def load_view(info: CameraInfo, resolution: int = -1,
               trans=np.array([0.0, 0.0, 0.0]), scale: float = 1.0
               ) -> ViewBatch:
     """Decode one view into a host-side ViewBatch (numpy leaves)."""
-    img = _rgb_or_rgba(read_image(info.image_path))
+    img = read_image(info.image_path, "rgb")
     orig_h, orig_w = img.shape[:2]
     w, h = _resolution(orig_w, orig_h, resolution, resolution_scale)
 
-    rgba = _resize(_to_float(img), w, h)
+    rgba = _resize(img.astype(np.float32) / 255.0, w, h)
     rgb = rgba[..., :3]
 
     if info.mask_path:
@@ -104,20 +96,21 @@ def load_view(info: CameraInfo, resolution: int = -1,
     depth_reliable = False
     dp = info.depth_params
     if info.depth_path and dp is not None and dp.get("scale", 0) > 0:
-        raw = read_image(info.depth_path).astype(np.float32) / float(2 ** 16)
-        if raw.ndim == 3:
-            # OpenCV reads color as BGR and the reference keeps channel 0:
-            # the last channel in RGB order.
-            raw = raw[..., 2]
-        scaled = _resize(raw * dp["scale"] + dp["offset"], w, h)
-        scaled[scaled < 0] = 0
-        invdepth = scaled[None]
-        med = dp.get("med_scale", 0.0)
-        if med > 0 and (dp["scale"] < 0.2 * med or dp["scale"] > 5 * med):
-            depth_mask = np.zeros_like(alpha)
-        else:
-            depth_mask = alpha.copy()
-            depth_reliable = True
+        raw = load_unchanged(info.depth_path)
+        if raw is not None:
+            raw = raw.astype(np.float32) / float(2 ** 16)
+            scaled = _resize(raw * dp["scale"] + dp["offset"], w, h)
+            if scaled.ndim == 3:
+                scaled = scaled[..., 0]
+            scaled[scaled < 0] = 0
+            invdepth = scaled[None]
+            med = dp.get("med_scale", 0.0)
+            if med > 0 and (dp["scale"] < 0.2 * med
+                            or dp["scale"] > 5 * med):
+                depth_mask = np.zeros_like(alpha)
+            else:
+                depth_mask = alpha.copy()
+                depth_reliable = True
 
     cam = make_camera(info.R, info.T, info.fovx, info.fovy, w, h,
                       primx=info.primx, primy=info.primy,

@@ -258,7 +258,10 @@ def colmap_dir(tmp_path_factory):
 def test_scene_and_load_view_match_jax(colmap_dir, tmp_path, resolution):
     """Same COLMAP dir: cameras, extent, initial state exact (to float32
     rounding); ViewBatch arrays within 1e-6 (resolution 2 resizes by an
-    integer factor, where area resizing equals OpenCV's INTER_AREA)."""
+    integer factor, where the port's block mean is within 1e-6 of
+    OpenCV's INTER_AREA; non-integer factors, enlargements and every PNG
+    kind of view, mask and depth map are held in
+    ``tests/test_torch_image_contracts.py``)."""
     kw = dict(source_path=colmap_dir, depths="depths", skybox_num=10,
               resolution=resolution)
     js = JScene(JModelCfg(model_path=str(tmp_path / "j"), **kw),
