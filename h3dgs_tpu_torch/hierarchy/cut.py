@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
 from .tree import N_CHILDREN, PARENT
 
 DIST_EPS = 1e-9
@@ -30,6 +31,7 @@ class Cut(NamedTuple):
     num_siblings: torch.Tensor  # [K] i32
     valid: torch.Tensor         # [K] bool
     count: torch.Tensor         # [] i32 true cut size (may exceed K: overflow)
+    size: int                   # the true cut size as read on the host
 
 
 def norm3(v: torch.Tensor) -> torch.Tensor:
@@ -91,11 +93,12 @@ def expand_to_size(nodes: torch.Tensor, boxes: torch.Tensor, limit,
     ascending node indices padded with M; ``count`` is the true size.
     ``max_cut=None`` sizes the cut exactly (no padding, never truncated).
     The selection's size is read on the host either way (one device
-    sync)."""
+    sync, in the span ``cut.count.sync``) and kept as ``size``."""
     m = nodes.shape[0]
     dev = nodes.device
     in_cut, w_all, _ = cut_mask(nodes, boxes, limit, cam_center)
-    (sel,) = torch.nonzero(in_cut, as_tuple=True)
+    with profiling.span("cut.count.sync"):
+        (sel,) = torch.nonzero(in_cut, as_tuple=True)
     count = torch.tensor(sel.shape[0], dtype=torch.int32, device=dev)
     if max_cut is None:
         max_cut = sel.shape[0]
@@ -116,6 +119,7 @@ def expand_to_size(nodes: torch.Tensor, boxes: torch.Tensor, limit,
                                  torch.ones_like(nsib)).to(torch.int32),
         valid=valid,
         count=count,
+        size=sel.shape[0],
     )
 
 

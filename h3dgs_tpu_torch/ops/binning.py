@@ -11,7 +11,10 @@ breaks exact depth ties by Gaussian index.
 Unlike the reference, the entry list is allocated at the exact
 ``total_entries``: nothing is dropped at a budget, so there is no
 ``max_entries``. The TPU's chunk-aligned layout (``bin_gaussians_aligned``)
-is not ported.
+is not ported. Two reads size the work on the host: the entry count
+(``repeat_interleave``) and the tile counts (``bincount`` reads the ids'
+range); each runs in a ``.sync`` span, and the counter
+``raster.entries`` adds the entry count (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from .projection import ProjectedGaussians
 
 TILE = 16  # pixels per tile side
@@ -102,8 +106,11 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
 
     # One entry per (Gaussian, covered tile), generated in Gaussian order;
     # the tile is row-major within the Gaussian's rectangle.
-    gauss = torch.repeat_interleave(torch.arange(n, device=dev), counts64)
+    with profiling.span("raster.entries.sync"):
+        gauss = torch.repeat_interleave(torch.arange(n, device=dev),
+                                        counts64)
     total = gauss.shape[0]
+    profiling.count("raster.entries", total)
     offsets = torch.cumsum(counts64, 0) - counts64             # exclusive
     j = torch.arange(total, device=dev) - offsets[gauss]
     g_span_x = span_x.long()[gauss]
@@ -115,7 +122,8 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
     key = (tile_id << 32) | depth_bits[gauss]
     _, order = torch.sort(key, stable=True)
 
-    tile_count = torch.bincount(tile_id, minlength=n_tiles)
+    with profiling.span("raster.tiles.sync"):
+        tile_count = torch.bincount(tile_id, minlength=n_tiles)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
     return BinnedGaussians(
         gauss_idx=gauss[order].to(torch.int32),

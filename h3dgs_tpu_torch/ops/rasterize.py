@@ -2,11 +2,14 @@
 backward K2) -> background.
 
 Counterpart of ``h3dgs_tpu/ops/rasterize.py:rasterize`` and ``blend_auto``,
-with the same output keys. Gradients flow by autograd to ``means3d``,
-``scales``, ``quats``, ``opacities``, ``shs`` and ``means2d_offset`` (the
-screen-space densification signal, ``h3dgs_tpu/ops/rasterize.py:467-470``)
-through the projection and the blend's ``torch.autograd.Function``.
-Binning produces indices only and runs on detached tensors.
+with the same output keys except the TPU's entry-budget counters
+(``n_truncated``, ``n_raw``, ``n_bwd_quanta``). Gradients flow by
+autograd to ``means3d``, ``scales``, ``quats``, ``opacities``, ``shs`` and
+``means2d_offset`` (the screen-space densification signal,
+``h3dgs_tpu/ops/rasterize.py:467-470``) through the projection and the
+blend's ``torch.autograd.Function``. Binning produces indices only and
+runs on detached tensors. The spans ``raster.project``, ``raster.bin``
+and ``raster.blend`` (``utils/profiling.py``) mark the three stages.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..scene.camera import Camera
+from ..utils import profiling
 from .binning import TILE, BinnedGaussians, bin_gaussians
 from .blend import blend_forward
 from .projection import ProjectedGaussians, project_gaussians
@@ -47,25 +51,25 @@ def blend_auto(proj: ProjectedGaussians, height: int, width: int, bg_color,
                config: RasterizeConfig = RasterizeConfig()):
     """Bin and blend projected Gaussians into an image.
 
-    Returns (image [3,H,W], invdepth [1,H,W], final_T [H,W], n_need [],
-    n_truncated [] (always 0: nothing is dropped), n_raw [] (the true
-    entry count), n_bwd_quanta [] (-1: not tracked)).
+    Returns (image [3,H,W], invdepth [1,H,W], final_T [H,W], n_need []).
+    The JAX package's entry-budget counters (``n_truncated``, ``n_raw``,
+    ``n_bwd_quanta``) have no counterpart: nothing is dropped, the entry
+    count is ``n_need``, and the backward is never truncated.
     """
     if config.tile != TILE:
         raise ValueError(f"the blend kernel uses {TILE}x{TILE} tiles, "
                          f"got tile={config.tile}")
-    binned = bin_gaussians(
-        ProjectedGaussians(*(t.detach() for t in proj)), height, width,
-        config.tile)
-    color, invdepth, final_t, _last = blend_forward(
-        *blend_args(proj, binned), height, width)
-    bg = torch.as_tensor(bg_color, dtype=color.dtype, device=color.device)
-    image = color + final_t[None] * bg[:, None, None]
-    dev = color.device
-    return (image, invdepth, final_t, binned.total_entries,
-            torch.zeros((), dtype=torch.int32, device=dev),
-            binned.total_entries,
-            torch.full((), -1, dtype=torch.int32, device=dev))
+    with profiling.span("raster.bin"):
+        binned = bin_gaussians(
+            ProjectedGaussians(*(t.detach() for t in proj)), height, width,
+            config.tile)
+    with profiling.span("raster.blend"):
+        color, invdepth, final_t, _last = blend_forward(
+            *blend_args(proj, binned), height, width)
+        bg = torch.as_tensor(bg_color, dtype=color.dtype,
+                             device=color.device)
+        image = color + final_t[None] * bg[:, None, None]
+    return image, invdepth, final_t, binned.total_entries
 
 
 def rasterize(
@@ -78,15 +82,15 @@ def rasterize(
     """Full rasterization pass on the Gaussians' device.
 
     Returns a dict: render [3,H,W], invdepth [1,H,W], final_transmittance
-    [H,W], radii [N], visibility_filter [N] bool, n_duplicates [],
-    n_truncated [], n_raw [], n_bwd_quanta [].
+    [H,W], radii [N], visibility_filter [N] bool, n_duplicates [].
     """
-    proj = project_gaussians(means3d, scales, quats, opacities, shs, camera,
-                             sh_degree, scale_modifier,
-                             colors_precomp=colors_precomp)
-    if means2d_offset is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_offset)
-    image, invdepth, final_t, n_dup, n_trunc, n_raw, n_bwd = blend_auto(
+    with profiling.span("raster.project"):
+        proj = project_gaussians(means3d, scales, quats, opacities, shs,
+                                 camera, sh_degree, scale_modifier,
+                                 colors_precomp=colors_precomp)
+        if means2d_offset is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    image, invdepth, final_t, n_dup = blend_auto(
         proj, camera.height, camera.width, bg_color, config)
     return {
         "render": image,
@@ -95,7 +99,4 @@ def rasterize(
         "radii": proj.radius,
         "visibility_filter": proj.radius > 0,
         "n_duplicates": n_dup,
-        "n_truncated": n_trunc,
-        "n_raw": n_raw,
-        "n_bwd_quanta": n_bwd,
     }

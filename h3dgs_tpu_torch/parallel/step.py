@@ -22,6 +22,9 @@ step over a batched renderer that computes the same update as its
 ``make_dp_train_step``. The port has one dp step, held against both JAX
 builders in its tests.
 
+The spans ``train.step`` / ``post.step`` hold a whole step and
+``train.update`` / ``post.update`` its update (``utils/profiling.py``).
+
 Memory: the gradient accumulator is one extra copy of the parameters'
 gradients (59 floats a row).
 """
@@ -40,6 +43,7 @@ from ..train.post_step import (PostStepOutput, make_post_update,
                                make_post_view_grads)
 from ..train.step import (StepOutput, ViewBatch, make_update,
                           make_view_grads)
+from ..utils import profiling
 
 
 def _group_size(group) -> int:
@@ -87,55 +91,60 @@ def make_dp_train_step(opt_cfg: OptimizationConfig,
              batch: List[ViewBatch], iteration, bg: torch.Tensor,
              spatial_lr_scale, cameras_extent,
              sh_degree: int) -> StepOutput:
-        n_proc = _group_size(group)
-        n_total = len(batch) * n_proc
-        acc = g_exp = radii = visible = None
-        photo = depth = n_dup = None
-        for view in batch:
-            g = view_grads(state, exposure, view, iteration, bg, sh_degree)
+        with profiling.span("train.step"):
+            n_proc = _group_size(group)
+            n_total = len(batch) * n_proc
+            acc = g_exp = radii = visible = None
+            photo = depth = n_dup = None
+            for view in batch:
+                g = view_grads(state, exposure, view, iteration, bg,
+                               sh_degree)
+                with torch.no_grad():
+                    grads = dict(g.g_params, _offset=g.g_offset)
+                    acc = _accumulate(acc, grads)
+                    if use_exposure:
+                        if g_exp is None:
+                            g_exp = torch.zeros_like(exposure)
+                        g_exp[view.image_idx] += g.g_exposure
+                    if radii is None:
+                        radii, visible = g.radii, g.visible
+                        photo, depth = g.photo_loss, g.depth_loss
+                        n_dup = g.n_duplicates
+                    else:
+                        radii = torch.maximum(radii, g.radii)
+                        visible = visible | g.visible
+                        photo = photo + g.photo_loss
+                        depth = depth + g.depth_loss
+                        n_dup = torch.maximum(n_dup, g.n_duplicates)
+                del g, grads
             with torch.no_grad():
-                grads = dict(g.g_params, _offset=g.g_offset)
-                acc = _accumulate(acc, grads)
-                if use_exposure:
-                    if g_exp is None:
-                        g_exp = torch.zeros_like(exposure)
-                    g_exp[view.image_idx] += g.g_exposure
-                if radii is None:
-                    radii, visible = g.radii, g.visible
-                    photo, depth = g.photo_loss, g.depth_loss
-                    n_dup = g.n_duplicates
-                else:
-                    radii = torch.maximum(radii, g.radii)
-                    visible = visible | g.visible
-                    photo, depth = photo + g.photo_loss, depth + g.depth_loss
-                    n_dup = torch.maximum(n_dup, g.n_duplicates)
-            del g, grads
-        with torch.no_grad():
-            if n_total > 1:
-                for v in acc.values():
-                    v.div_(n_total)
-                if g_exp is not None:
-                    g_exp.div_(n_total)
-            if n_proc > 1:
-                floats = list(acc.values())
-                if g_exp is not None:
-                    floats.append(g_exp)
-                losses = torch.stack([photo, depth])
-                _all_reduce(floats + [losses], dist.ReduceOp.SUM, group)
-                vis = visible.to(torch.int32)
-                n_dup = n_dup.to(torch.int32).reshape(1)
-                _all_reduce([radii, vis, n_dup], dist.ReduceOp.MAX, group)
-                visible, n_dup = vis > 0, n_dup[0]
-                photo, depth = losses[0], losses[1]
-            g_offset = acc.pop("_offset")
-        new_state, new_opt, exposure, exposure_opt = update(
-            state, opt, exposure, exposure_opt, acc, g_exp, g_offset, radii,
-            visible, iteration, spatial_lr_scale, cameras_extent)
-        return StepOutput(
-            state=new_state, opt=new_opt, exposure=exposure,
-            exposure_opt=exposure_opt, photo_loss=photo / n_total,
-            depth_loss=depth / n_total, n_visible=visible.sum(),
-            n_duplicates=n_dup)
+                if n_total > 1:
+                    for v in acc.values():
+                        v.div_(n_total)
+                    if g_exp is not None:
+                        g_exp.div_(n_total)
+                if n_proc > 1:
+                    floats = list(acc.values())
+                    if g_exp is not None:
+                        floats.append(g_exp)
+                    losses = torch.stack([photo, depth])
+                    _all_reduce(floats + [losses], dist.ReduceOp.SUM, group)
+                    vis = visible.to(torch.int32)
+                    n_dup = n_dup.to(torch.int32).reshape(1)
+                    _all_reduce([radii, vis, n_dup], dist.ReduceOp.MAX, group)
+                    visible, n_dup = vis > 0, n_dup[0]
+                    photo, depth = losses[0], losses[1]
+                g_offset = acc.pop("_offset")
+            with profiling.span("train.update"):
+                new_state, new_opt, exposure, exposure_opt = update(
+                    state, opt, exposure, exposure_opt, acc, g_exp,
+                    g_offset, radii, visible, iteration, spatial_lr_scale,
+                    cameras_extent)
+            return StepOutput(
+                state=new_state, opt=new_opt, exposure=exposure,
+                exposure_opt=exposure_opt, photo_loss=photo / n_total,
+                depth_loss=depth / n_total, n_visible=visible.sum(),
+                n_duplicates=n_dup)
 
     return step
 
@@ -158,38 +167,40 @@ def make_dp_post_step(opt_cfg: OptimizationConfig,
              boxes: torch.Tensor, anchor_mask: torch.Tensor,
              exposure_rows, limits, iteration, bg: torch.Tensor,
              spatial_lr_scale, sh_degree: int) -> PostStepOutput:
-        n_proc = _group_size(group)
-        n_total = len(batch) * n_proc
-        acc = photo = cut_max = vis_max = None
-        for view, exp_row, limit in zip(batch, exposure_rows, limits):
-            g = view_grads(state, view, nodes, boxes, exp_row, limit, bg,
-                           sh_degree)
+        with profiling.span("post.step"):
+            n_proc = _group_size(group)
+            n_total = len(batch) * n_proc
+            acc = photo = cut_max = vis_max = None
+            for view, exp_row, limit in zip(batch, exposure_rows, limits):
+                g = view_grads(state, view, nodes, boxes, exp_row, limit, bg,
+                               sh_degree)
+                with torch.no_grad():
+                    acc = _accumulate(acc, g.g_params)
+                    if photo is None:
+                        photo, cut_max, vis_max = (g.photo_loss, g.cut_size,
+                                                   g.n_visible)
+                    else:
+                        photo = photo + g.photo_loss
+                        cut_max = torch.maximum(cut_max, g.cut_size)
+                        vis_max = torch.maximum(vis_max, g.n_visible)
+                del g
             with torch.no_grad():
-                acc = _accumulate(acc, g.g_params)
-                if photo is None:
-                    photo, cut_max, vis_max = (g.photo_loss, g.cut_size,
-                                               g.n_visible)
-                else:
-                    photo = photo + g.photo_loss
-                    cut_max = torch.maximum(cut_max, g.cut_size)
-                    vis_max = torch.maximum(vis_max, g.n_visible)
-            del g
-        with torch.no_grad():
-            if n_total > 1:
-                for v in acc.values():
-                    v.div_(n_total)
-            if n_proc > 1:
-                photo = photo.reshape(1).clone()
-                _all_reduce(list(acc.values()) + [photo],
-                            dist.ReduceOp.SUM, group)
-                counts = torch.stack([cut_max.to(torch.int64),
-                                      vis_max.to(torch.int64)])
-                _all_reduce([counts], dist.ReduceOp.MAX, group)
-                photo, cut_max, vis_max = photo[0], counts[0], counts[1]
-        new_state, new_opt = update(state, opt, acc, anchor_mask, iteration,
-                                    spatial_lr_scale)
-        return PostStepOutput(
-            state=new_state, opt=new_opt, photo_loss=photo / n_total,
-            cut_size=cut_max, n_visible=vis_max)
+                if n_total > 1:
+                    for v in acc.values():
+                        v.div_(n_total)
+                if n_proc > 1:
+                    photo = photo.reshape(1).clone()
+                    _all_reduce(list(acc.values()) + [photo],
+                                dist.ReduceOp.SUM, group)
+                    counts = torch.stack([cut_max.to(torch.int64),
+                                          vis_max.to(torch.int64)])
+                    _all_reduce([counts], dist.ReduceOp.MAX, group)
+                    photo, cut_max, vis_max = photo[0], counts[0], counts[1]
+            with profiling.span("post.update"):
+                new_state, new_opt = update(state, opt, acc, anchor_mask,
+                                            iteration, spatial_lr_scale)
+            return PostStepOutput(
+                state=new_state, opt=new_opt, photo_loss=photo / n_total,
+                cut_size=cut_max, n_visible=vis_max)
 
     return step

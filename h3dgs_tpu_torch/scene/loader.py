@@ -178,6 +178,11 @@ class ViewStream:
     def __iter__(self):
         return self
 
+    def ready(self) -> bool:
+        """Whether the next view is already decoded (``next`` will not
+        wait for it)."""
+        return bool(self._queue) and self._queue[0].done()
+
     def __next__(self) -> ViewBatch:
         while len(self._queue) < self.prefetch:
             self._submit()

@@ -34,6 +34,7 @@ from ..ops.rasterize import RasterizeConfig
 from ..parallel import multihost as mh
 from ..scene.scene import Scene
 from ..parallel import step as dp_lib
+from ..utils import profiling
 from . import checkpoint as ckpt_lib
 from .post_step import sample_limit
 from .step import (batch_to_device, densify_step, encode_view,
@@ -58,22 +59,39 @@ class BatchedPrefetcher:
     """Encode this process's next ``batch_size`` views (uint8 / f16) and
     start their transfer to the device through pinned memory, one step
     ahead, while the current step computes. Yields (host views, device
-    views) as lists."""
+    views) as lists.
+
+    ``__next__`` is the span ``view.next``, which begins a step's ordinal;
+    inside it ``view.wait`` (blocked on the stream), ``view.encode`` and
+    ``view.copy`` (pin and copy to the device), and the counter
+    ``view.ready`` adds 1 for each view the stream had already decoded."""
 
     def __init__(self, stream, batch_size: int, device):
         self.stream = stream
         self.batch_size = batch_size
         self.device = device
+        # ViewStream.ready; another iterator leaves the counter out.
+        self._ready = getattr(stream, "ready", None)
         self._next = self._launch()
 
     def _launch(self):
-        hosts = [next(self.stream) for _ in range(self.batch_size)]
-        return hosts, [batch_to_device(encode_view(h), self.device)
-                       for h in hosts]
+        hosts, devs = [], []
+        for _ in range(self.batch_size):
+            if self._ready is not None:
+                profiling.count("view.ready", int(self._ready()))
+            with profiling.span("view.wait"):
+                hosts.append(next(self.stream))
+        for h in hosts:
+            with profiling.span("view.encode"):
+                coded = encode_view(h)
+            with profiling.span("view.copy"):
+                devs.append(batch_to_device(coded, self.device))
+        return hosts, devs
 
     def __next__(self):
-        hosts, dev = self._next
-        self._next = self._launch()
+        with profiling.span("view.next", begins=True):
+            hosts, dev = self._next
+            self._next = self._launch()
         return hosts, dev
 
 
@@ -125,11 +143,17 @@ def dp_setup(cfg: FullConfig) -> DpSetup:
 class TrainLog:
     """Deferred-sync loss log: keeps device scalars between log points so
     the hot loop never waits on a readback, and folds them into the EMA
-    there."""
+    there. ``rate(it)`` is the iterations a second this run has made
+    since it started at ``first_iter``."""
+    first_iter: int = 0
     ema_photo: float = 0.0
     ema_depth: float = 0.0
-    t_start: float = 0.0
+    t_start: float = dataclasses.field(default_factory=time.perf_counter)
     _pending: list = dataclasses.field(default_factory=list)
+
+    def rate(self, it: int) -> float:
+        return (it - self.first_iter) / max(
+            time.perf_counter() - self.t_start, 1e-9)
 
     def update(self, photo, depth):
         self._pending.append((photo, depth))
@@ -199,7 +223,7 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
     prefetch = BatchedPrefetcher(stream, dp.local_views, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    log = TrainLog(t_start=time.time())
+    log = TrainLog(first_iter)
 
     try:
         for it in range(first_iter + 1, opt_cfg.iterations + 1):
@@ -222,10 +246,11 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
             if not coarse and it < opt_cfg.densify_until_iter:
                 if (it > opt_cfg.densify_from_iter
                         and it % opt_cfg.densification_interval == 0):
-                    state, opt, stats = densify_step(
-                        state, opt, gen, opt_cfg.densify_grad_threshold,
-                        0.005, extent, opt_cfg.percent_dense)
-                    n_clone, n_split, n_prune, n_drop = map(int, stats)
+                    with profiling.span("train.densify"):
+                        state, opt, stats = densify_step(
+                            state, opt, gen, opt_cfg.densify_grad_threshold,
+                            0.005, extent, opt_cfg.percent_dense)
+                        n_clone, n_split, n_prune, n_drop = map(int, stats)
                     if primary:
                         print(f"[{it}] densify: cloned {n_clone}, split "
                               f"{n_split}, pruned {n_prune}, dropped "
@@ -256,12 +281,14 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
             if it % 50 == 0 or it == opt_cfg.iterations:
                 log.sync()
                 n_alive = int(state.n_alive)
-                rate = it / max(time.time() - log.t_start, 1e-9)
+                profiling.count("train.alive_rows", n_alive)
+                profiling.count("train.capacity_rows", state.capacity)
                 if primary:
                     print(f"[{it}/{opt_cfg.iterations}] "
                           f"loss={log.ema_photo:.5f} "
                           f"depth={log.ema_depth:.5f} "
-                          f"alive={n_alive} it/s={rate:.2f}", flush=True)
+                          f"alive={n_alive} it/s={log.rate(it):.2f}",
+                          flush=True)
             if it in save_iterations and primary:
                 path = scene.save(it, state, exposure.cpu().numpy())
                 print(f"[{it}] saved -> {path}", flush=True)
@@ -341,7 +368,7 @@ def train_post(cfg: FullConfig, scene: Scene,
     prefetch = BatchedPrefetcher(stream, dp.local_views, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(first_iter)
-    log = TrainLog(t_start=time.time())
+    log = TrainLog(first_iter)
     pre_exp = scene.pretrained_exposures or {}
     identity = np.eye(3, 4, dtype=np.float32)
 
@@ -368,10 +395,9 @@ def train_post(cfg: FullConfig, scene: Scene,
                 step_cb(it, out)
             if (it % 50 == 0 or it == opt_cfg.iterations) and primary:
                 log.sync()
-                rate = it / max(time.time() - log.t_start, 1e-9)
                 print(f"[{it}/{opt_cfg.iterations}] "
                       f"loss={log.ema_photo:.5f} cut={int(out.cut_size)} "
-                      f"it/s={rate:.2f}", flush=True)
+                      f"it/s={log.rate(it):.2f}", flush=True)
             if it in save_iterations and primary:
                 path = scene.save(it, state, hierarchy=h)
                 print(f"[{it}] saved -> {path}", flush=True)

@@ -5,7 +5,10 @@ One post step: select the view-adaptive cut for a sampled granularity
 limit, lerp child and parent attributes (differentiable LOD), splat,
 photometric loss, one ``torch.autograd.grad`` through the blend (K1
 forward, K2 backward), the projection and the interpolation table, zero
-the anchor and skybox gradients, dense Adam.
+the anchor and skybox gradients, dense Adam. The spans ``post.forward``,
+``post.loss``, ``post.backward`` and, in the update, ``update.lock`` and
+``update.adam`` mark its stages; the selection is the span ``cut.select``
+and the counter ``cut.rows`` wherever it runs (``utils/profiling.py``).
 
 Row layout (create_from_hier parity): hierarchy nodes occupy rows [0, M);
 skybox rows come LAST and are appended verbatim with weight 1; opacity
@@ -25,7 +28,7 @@ from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig, rasterize
 from ..scene.camera import Camera
 from ..utils import losses as loss_lib
-from ..utils import schedules
+from ..utils import profiling, schedules
 from .step import ViewBatch, apply_exposure, decode_view
 
 LIMIT_MIN = 0.005
@@ -74,23 +77,29 @@ def select_cut_gaussians(state: GaussianState, nodes, boxes, cam_center,
 
     ``table``: optional cached interp_table(params) (the viewer's params
     are static, so interpolation is gather-only).
+
+    Runs in the span ``cut.select``; the counter ``cut.rows`` adds the
+    cut's size as the selection read it on the host.
     """
     if params is None:
         params = state.trainable_dict()
     c = state.capacity
     n_sky = state.n_skybox
-    cut = cut_lib.expand_to_size(nodes, boxes, limit, cam_center, max_cut)
-    xyz, scales, quats, opac, shs = cut_lib.interpolate_cut(params, cut,
-                                                            table)
-    if n_sky:
-        sky = slice(c - n_sky, c)
-        xyz = torch.cat([xyz, params["xyz"][sky]])
-        scales = torch.cat([scales, torch.exp(params["scaling"][sky])])
-        quats = torch.cat([quats, params["rotation"][sky]])
-        opac = torch.cat([opac, torch.abs(params["opacity"][sky, 0])])
-        feats = torch.cat([params["f_dc"][sky], params["f_rest"][sky]],
-                          dim=1)
-        shs = torch.cat([shs, feats])
+    with profiling.span("cut.select"):
+        cut = cut_lib.expand_to_size(nodes, boxes, limit, cam_center,
+                                     max_cut)
+        profiling.count("cut.rows", cut.size)
+        xyz, scales, quats, opac, shs = cut_lib.interpolate_cut(params, cut,
+                                                                table)
+        if n_sky:
+            sky = slice(c - n_sky, c)
+            xyz = torch.cat([xyz, params["xyz"][sky]])
+            scales = torch.cat([scales, torch.exp(params["scaling"][sky])])
+            quats = torch.cat([quats, params["rotation"][sky]])
+            opac = torch.cat([opac, torch.abs(params["opacity"][sky, 0])])
+            feats = torch.cat([params["f_dc"][sky], params["f_rest"][sky]],
+                              dim=1)
+            shs = torch.cat([shs, feats])
     return xyz, scales, quats, opac, shs, cut
 
 
@@ -138,15 +147,19 @@ def make_post_view_grads(opt_cfg: OptimizationConfig,
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.trainable_dict().items()}
         with torch.enable_grad():
-            out = render_cut(state, nodes, boxes, batch.camera, limit,
-                             sh_degree, bg, raster_cfg, None,
-                             exposure=exp_row, params=params)
-            image = out["render"] * batch.alpha_mask
-            photo = loss_lib.photometric_loss(image, batch.gt_image,
-                                              opt_cfg.lambda_dssim)
-            grads = torch.autograd.grad(photo, [params[k] for k in names],
-                                        allow_unused=True,
-                                        materialize_grads=True)
+            with profiling.span("post.forward"):
+                out = render_cut(state, nodes, boxes, batch.camera, limit,
+                                 sh_degree, bg, raster_cfg, None,
+                                 exposure=exp_row, params=params)
+            with profiling.span("post.loss"):
+                image = out["render"] * batch.alpha_mask
+                photo = loss_lib.photometric_loss(image, batch.gt_image,
+                                                  opt_cfg.lambda_dssim)
+            with profiling.span("post.backward"):
+                grads = torch.autograd.grad(photo,
+                                            [params[k] for k in names],
+                                            allow_unused=True,
+                                            materialize_grads=True)
         return PostViewGrads(
             g_params=dict(zip(names, grads)), photo_loss=photo.detach(),
             cut_size=out["cut"].count,
@@ -164,19 +177,21 @@ def make_post_update(opt_cfg: OptimizationConfig,
     def update(state: GaussianState, opt: adam_lib.AdamState,
                g_params: dict, anchor_mask: torch.Tensor, iteration,
                spatial_lr_scale):
-        locked = anchor_mask
-        if skybox_locked and state.n_skybox:
-            locked = locked | state.locked_rows_mask()
-        for k in g_params:
-            m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
-            g_params[k] = torch.where(m, torch.zeros_like(g_params[k]),
-                                      g_params[k])
-        lrs = schedules.gaussian_lr_dict(opt_cfg, float(iteration))
-        lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
-        all_rows = torch.ones(state.capacity, dtype=torch.bool,
-                              device=state.device)
-        new_params, new_opt = adam_lib.sparse_adam_update(
-            state.trainable_dict(), g_params, opt, lrs, all_rows)
+        with profiling.span("update.lock"):
+            locked = anchor_mask
+            if skybox_locked and state.n_skybox:
+                locked = locked | state.locked_rows_mask()
+            for k in g_params:
+                m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
+                g_params[k] = torch.where(m, torch.zeros_like(g_params[k]),
+                                          g_params[k])
+        with profiling.span("update.adam"):
+            lrs = schedules.gaussian_lr_dict(opt_cfg, float(iteration))
+            lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
+            all_rows = torch.ones(state.capacity, dtype=torch.bool,
+                                  device=state.device)
+            new_params, new_opt = adam_lib.sparse_adam_update(
+                state.trainable_dict(), g_params, opt, lrs, all_rows)
         return state.replace_trainable(new_params), new_opt
 
     return update

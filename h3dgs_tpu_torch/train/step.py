@@ -9,10 +9,14 @@ K2 backward) -> skybox gradient locking -> densification stats from the
 screen-space offset gradient -> masked sparse Adam -> exposure Adam ->
 big-Gaussian shrink, in the reference's order. It is a plain eager
 function: the updates run under ``torch.no_grad()`` and return new
-tensors. ``StepOutput`` drops the JAX step's entry-budget counters
-(``n_truncated``, ``n_raw``, ``n_bwd_quanta``): they size the TPU's static
-buffers, which the port does not have. Densify / prune and the opacity reset run on their own
-intervals (``densify_step``, ``reset_opacity_step``).
+tensors. ``StepOutput`` has no counterpart of the JAX step's entry-budget
+counters (``n_truncated``, ``n_raw``, ``n_bwd_quanta``), and ``rasterize``
+no longer returns them: they size the TPU's static buffers, which the
+port does not have. Densify / prune and the opacity reset run on their
+own intervals (``densify_step``, ``reset_opacity_step``). The spans
+``train.forward``, ``train.loss``, ``train.backward`` and, in the update,
+``update.lock``, ``update.stats``, ``update.adam`` and ``update.shrink``
+mark its stages (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig, rasterize
 from ..scene.camera import Camera
 from ..utils import losses as loss_lib
-from ..utils import schedules
+from ..utils import profiling, schedules
 
 
 class ViewBatch(NamedTuple):
@@ -161,25 +165,30 @@ def make_view_grads(opt_cfg: OptimizationConfig,
 
         with torch.enable_grad():
             st = state.replace_trainable(params)
-            out = render_for_training(st, batch.camera, sh_degree, bg,
-                                      raster_cfg, means2d_offset=offset,
-                                      exposure=exp_row)
-            image = out["render"] * batch.alpha_mask
-            photo = loss_lib.photometric_loss(image, batch.gt_image,
-                                              opt_cfg.lambda_dssim)
-            if use_depth_loss:
-                d_l1 = torch.mean(torch.abs(out["invdepth"] - batch.invdepth)
-                                  * batch.depth_mask)
-                depth = torch.where(batch.depth_reliable & (depth_w > 0),
-                                    depth_w * d_l1, torch.zeros_like(d_l1))
-            else:
-                depth = torch.zeros((), device=state.device)
+            with profiling.span("train.forward"):
+                out = render_for_training(st, batch.camera, sh_degree, bg,
+                                          raster_cfg, means2d_offset=offset,
+                                          exposure=exp_row)
+            with profiling.span("train.loss"):
+                image = out["render"] * batch.alpha_mask
+                photo = loss_lib.photometric_loss(image, batch.gt_image,
+                                                  opt_cfg.lambda_dssim)
+                if use_depth_loss:
+                    d_l1 = torch.mean(torch.abs(out["invdepth"]
+                                                - batch.invdepth)
+                                      * batch.depth_mask)
+                    depth = torch.where(batch.depth_reliable & (depth_w > 0),
+                                        depth_w * d_l1,
+                                        torch.zeros_like(d_l1))
+                else:
+                    depth = torch.zeros((), device=state.device)
             inputs = [params[k] for k in names] + [offset]
             if use_exposure:
                 inputs.append(exp_row)
-            grads = torch.autograd.grad(photo + depth, inputs,
-                                        allow_unused=True,
-                                        materialize_grads=True)
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(photo + depth, inputs,
+                                            allow_unused=True,
+                                            materialize_grads=True)
         return ViewGrads(
             g_params=dict(zip(names, grads[:len(names)])),
             g_exposure=grads[len(names) + 1] if use_exposure else None,
@@ -210,43 +219,49 @@ def make_update(opt_cfg: OptimizationConfig, use_exposure: bool = True,
         it = float(iteration)
         # --- skybox gradient locking (train_single.py:162-168) ---
         if skybox_locked:
-            locked = state.locked_rows_mask()
-            for k in g_params:
-                m = locked.reshape((-1,) + (1,) * (g_params[k].dim() - 1))
-                g_params[k] = torch.where(m, torch.zeros_like(
-                    g_params[k]), g_params[k])
+            with profiling.span("update.lock"):
+                locked = state.locked_rows_mask()
+                for k in g_params:
+                    m = locked.reshape((-1,) + (1,) * (g_params[k].dim()
+                                                       - 1))
+                    g_params[k] = torch.where(m, torch.zeros_like(
+                        g_params[k]), g_params[k])
 
         # --- densification stats (screen-space positional grads) ---
-        new_state = densify_lib.add_densification_stats(
-            state, g_offset, radii, visible)
+        with profiling.span("update.stats"):
+            new_state = densify_lib.add_densification_stats(
+                state, g_offset, radii, visible)
 
-        # --- sparse Adam on rows with a nonzero opacity gradient ---
-        relevant = (g_params["opacity"][:, 0] != 0.0) & state.alive
-        lrs = schedules.gaussian_lr_dict(opt_cfg, it, freeze_xyz=freeze_xyz)
-        lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
-        new_params, new_opt = adam_lib.sparse_adam_update(
-            state.trainable_dict(), g_params, opt, lrs, relevant)
-        new_state = new_state.replace_trainable(new_params)
+        with profiling.span("update.adam"):
+            # --- sparse Adam on rows with a nonzero opacity gradient ---
+            relevant = (g_params["opacity"][:, 0] != 0.0) & state.alive
+            lrs = schedules.gaussian_lr_dict(opt_cfg, it,
+                                             freeze_xyz=freeze_xyz)
+            lrs["xyz"] = lrs["xyz"] * float(spatial_lr_scale)
+            new_params, new_opt = adam_lib.sparse_adam_update(
+                state.trainable_dict(), g_params, opt, lrs, relevant)
+            new_state = new_state.replace_trainable(new_params)
 
-        # --- exposure Adam (dense, torch defaults: eps 1e-8) ---
-        if use_exposure:
-            exp_lr = schedules.expon_lr(
-                it, opt_cfg.exposure_lr_init, opt_cfg.exposure_lr_final,
-                lr_delay_steps=opt_cfg.exposure_lr_delay_steps,
-                lr_delay_mult=opt_cfg.exposure_lr_delay_mult,
-                max_steps=opt_cfg.iterations)
-            all_rows = torch.ones(exposure.shape[0], dtype=torch.bool,
-                                  device=exposure.device)
-            new_exp, exposure_opt = adam_lib.sparse_adam_update(
-                {"exposure": exposure}, {"exposure": g_exposure},
-                exposure_opt, {"exposure": exp_lr}, all_rows, eps=1e-8)
-            exposure = new_exp["exposure"]
+            # --- exposure Adam (dense, torch defaults: eps 1e-8) ---
+            if use_exposure:
+                exp_lr = schedules.expon_lr(
+                    it, opt_cfg.exposure_lr_init, opt_cfg.exposure_lr_final,
+                    lr_delay_steps=opt_cfg.exposure_lr_delay_steps,
+                    lr_delay_mult=opt_cfg.exposure_lr_delay_mult,
+                    max_steps=opt_cfg.iterations)
+                all_rows = torch.ones(exposure.shape[0], dtype=torch.bool,
+                                      device=exposure.device)
+                new_exp, exposure_opt = adam_lib.sparse_adam_update(
+                    {"exposure": exposure}, {"exposure": g_exposure},
+                    exposure_opt, {"exposure": exp_lr}, all_rows, eps=1e-8)
+                exposure = new_exp["exposure"]
 
         # --- every-iteration big-Gaussian shrink ---
         if not skip_shrink:
-            new_state = densify_lib.shrink_big_gaussians(
-                new_state, cameras_extent, shrink_threshold,
-                protect_scaffold=shrink_protect_scaffold)
+            with profiling.span("update.shrink"):
+                new_state = densify_lib.shrink_big_gaussians(
+                    new_state, cameras_extent, shrink_threshold,
+                    protect_scaffold=shrink_protect_scaffold)
         return new_state, new_opt, exposure, exposure_opt
 
     return update

@@ -8,7 +8,9 @@ the view-adaptive cut would exceed a splat budget. Exposes:
   * serve() — the network_gui TCP protocol loop;
   * orbit() — offline fly-through rendering to PNG frames.
 
-Runs on the card unless ``device="cpu"`` is passed. ``n_bands`` splits
+Runs on the card unless ``device="cpu"`` is passed. Each request of
+``serve()`` is the span ``serve.request`` (``serve.read``, the render,
+``serve.send``; ``utils/profiling.py``). ``n_bands`` splits
 each frame into pixel bands over that many visible cards
 (``parallel/band_render.py``; 0 = every card, more than there are is cut
 to what there is, so one card renders one band). ``--web_port`` serves
@@ -36,6 +38,7 @@ from ..ops.rasterize import RasterizeConfig
 from ..parallel import sharding as shard_lib
 from ..scene.camera import Camera, look_at_camera
 from ..train.post_step import select_cut_gaussians, splat_cut_gaussians
+from ..utils import profiling
 from ..utils.runtime import resolve_device
 
 # The reference viewer's MiB -> splat conversion (bytes one rendered splat
@@ -115,7 +118,8 @@ class HierarchyRenderer:
         fits = counts <= self.budget
         idx = torch.where(fits.any(), fits.to(torch.int32).argmax(),
                           torch.tensor(LADDER_STEPS - 1, device=dev))
-        limit = ladder[idx]
+        with profiling.span("serve.ladder.sync"):
+            limit = ladder[idx]     # indexing by a device scalar reads it
         if self.reuse_margin <= 0:
             return limit, limit, torch.tensor(False, device=dev)
         hyst = limit * (1.0 - self.reuse_margin)
@@ -125,12 +129,14 @@ class HierarchyRenderer:
         return limit, torch.where(hyst_ok, hyst, limit), hyst_ok
 
     def _select_auto(self, limit0: float, cam_center: torch.Tensor):
-        """Budget fit + selection + interpolation for a fresh frame."""
-        limit, sel_limit, hyst_ok = self._fit_limit(limit0, cam_center)
+        """Budget fit + selection + interpolation for a fresh frame; the
+        cut's size comes back as the host int the selection read."""
+        with profiling.span("serve.fit"):
+            limit, sel_limit, hyst_ok = self._fit_limit(limit0, cam_center)
         xyz, scales, quats, opac, shs, cut = select_cut_gaussians(
             self.state, self.nodes, self.boxes, cam_center, sel_limit,
             max_cut=self.budget, table=self._table)
-        return ((xyz, scales, quats, opac, shs), cut.count,
+        return ((xyz, scales, quats, opac, shs), cut.size,
                 self._d_min(cut, cam_center), limit, hyst_ok)
 
     def _splat(self, camera: Camera, xyz, scales, quats, opac, shs):
@@ -142,12 +148,15 @@ class HierarchyRenderer:
         # Made contiguous there: the JPEG encoder and the socket read the
         # frame in row order, and a strided host copy of a 1080p frame
         # costs them more than the frame's render.
-        img = torch.clamp(out["render"], 0.0, 1.0)
-        return (img.permute(1, 2, 0) * 255.0).to(torch.uint8).contiguous()
+        with profiling.span("serve.finish"):
+            img = torch.clamp(out["render"], 0.0, 1.0)
+            return (img.permute(1, 2, 0) * 255.0).to(
+                torch.uint8).contiguous()
 
     def _cut_for(self, camera: Camera, tau: float):
         """Cached-or-fresh flat Gaussians for (camera position, tau)."""
-        center = camera.cam_center.cpu().numpy().astype(np.float64)
+        with profiling.span("serve.center.sync"):
+            center = camera.cam_center.cpu().numpy().astype(np.float64)
         cache = self._cut_cache
         margin = self.reuse_margin
         if (cache is not None and cache["tau"] == tau
@@ -162,28 +171,48 @@ class HierarchyRenderer:
         return (flat, count, (tau, center, camera, limit_dev, d_min,
                               hyst_ok), False)
 
-    def _maybe_cache(self, flat, count, meta):
-        """Populate the cut cache after the frame was fetched."""
+    def _maybe_cache(self, flat, count, meta) -> float:
+        """Populate the cut cache after the frame was fetched; returns the
+        frame's limit. Each device value is read once, in a span of its
+        own."""
         tau, center, camera, limit_dev, d_min, hyst_ok = meta
-        cacheable = self.reuse_margin > 0 and bool(hyst_ok)
-        # An empty cut yields d_min = inf, which would make the reuse test
-        # vacuously true forever: never cache it.
-        if cacheable and np.isfinite(float(d_min)):
-            self._cut_cache = {"center": center, "tau": tau,
-                               "hw": (camera.height, camera.width),
-                               "limit": float(limit_dev),
-                               "d_min": float(d_min),
-                               "flat": flat, "count": count}
+        with profiling.span("serve.limit.sync"):
+            limit = float(limit_dev)
+        if self.reuse_margin <= 0:
+            return limit
+        with profiling.span("serve.hyst.sync"):
+            cacheable = bool(hyst_ok)
+        if cacheable:
+            with profiling.span("serve.dmin.sync"):
+                d = float(d_min)
+            # An empty cut yields d_min = inf, which would make the reuse
+            # test vacuously true forever: never cache it.
+            if np.isfinite(d):
+                self._cut_cache = {"center": center, "tau": tau,
+                                   "hw": (camera.height, camera.width),
+                                   "limit": limit, "d_min": d,
+                                   "flat": flat, "count": count}
+        return limit
 
     @torch.no_grad()
     def render(self, camera: Camera, tau: float = 3.0):
-        """Returns (rgb [H,W,3] uint8 numpy, stats dict)."""
-        flat, count, limit, reused = self._cut_for(camera, tau)
-        img = self._splat(camera, *flat).cpu().numpy()
-        if not reused:
-            self._maybe_cache(flat, count, limit)
-            limit = float(limit[3])
-        return (img, {"cut_size": int(count), "limit": limit,
+        """Returns (rgb [H,W,3] uint8 numpy, stats dict).
+
+        The span ``serve.render`` holds ``serve.cut`` (cache or
+        ``serve.fit`` and ``cut.select``), the raster spans,
+        ``serve.finish`` and ``serve.cache``; every host read of a device
+        value on the way is a span whose name ends in ``.sync``
+        (``utils/profiling.py``)."""
+        with profiling.span("serve.render"):
+            with profiling.span("serve.cut"):
+                flat, count, limit, reused = self._cut_for(camera, tau)
+            img = self._splat(camera, *flat)
+            with profiling.span("serve.frame.sync"):
+                img = img.cpu().numpy()
+            if not reused:
+                with profiling.span("serve.cache"):
+                    limit = self._maybe_cache(flat, count, limit)
+        return (img, {"cut_size": count, "limit": limit,
                       "cut_reused": reused})
 
 
@@ -226,13 +255,22 @@ def serve(renderer: HierarchyRenderer, ip: str = "127.0.0.1",
                     time.sleep(0.05)
                 continue
             try:
-                msg = gui._read_msg()
-                cam = gui._camera_from_msg(msg)
-                payload = None
-                if cam is not None:
-                    img, _ = renderer.render(cam, tau)
-                    payload = memoryview(img.tobytes())
-                gui._send(payload)
+                with profiling.span("serve.request", begins=True):
+                    with profiling.span("serve.read"):
+                        msg = gui._read_msg()
+                        cam = gui._camera_from_msg(msg)
+                    # The last frame's bytes go before this frame's render
+                    # and its pixels after, so the frame's copy to the host
+                    # can land in memory the process already holds: freeing
+                    # both first made that copy of a 1080p frame take 3.0-
+                    # 3.6 ms on an H100's host instead of 1.2-1.3.
+                    payload = None
+                    if cam is not None:
+                        img, _ = renderer.render(cam, tau)
+                    with profiling.span("serve.send"):
+                        if cam is not None:
+                            payload = memoryview(img.tobytes())
+                        gui._send(payload)
             except ConnectionError:
                 gui.conn.close()
                 gui.conn = None

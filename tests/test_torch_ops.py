@@ -214,10 +214,13 @@ def test_rasterize_parity():
                         jnp.asarray(bg), config=XCFG)
     to = tras.rasterize(*scene_tensors(means, scales, quats, opac, shs), tc,
                         2, t_(bg))
-    assert set(to) == set(jo)
+    # The JAX package's entry-budget counters have no counterpart: the
+    # port drops nothing, and its entry count is n_duplicates.
+    budget = {"n_truncated", "n_raw", "n_bwd_quanta"}
+    assert set(to) == set(jo) - budget
     assert int(to["n_duplicates"]) == int(jo["n_duplicates"])
-    assert int(to["n_raw"]) == int(jo["n_raw"])
-    assert int(to["n_truncated"]) == 0
+    assert int(to["n_duplicates"]) == int(jo["n_raw"])
+    assert int(jo["n_truncated"]) == 0
     assert (np_(to["radii"]) == np.asarray(jo["radii"])).mean() >= 0.999
     # float32 projection + blend: 1e-4 except termination flips.
     _near(to["render"], jo["render"], 1e-4)
