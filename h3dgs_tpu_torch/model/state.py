@@ -8,6 +8,11 @@ keep the reference's layouts:
   * flat training (coarse / single): skybox rows FIRST, then scaffold rows,
     then scene Gaussians;
   * hierarchy post mode: skybox rows LAST, opacity activation |x|.
+
+Because free slots are filled lowest first, the live rows stay below a
+high-water mark (``GaussianState.high_water``) that moves only when
+``alive`` does; the flat step runs on the rows below it
+(``parallel/step.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.adam import AdamState
 
@@ -25,6 +31,40 @@ TENSOR_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
                  "rotation", "opacity", "alive")
 STAT_FIELDS = ("max_radii2d", "xyz_gradient_accum", "denom")
 ALL_FIELDS = TENSOR_FIELDS + STAT_FIELDS
+
+# The high-water mark is a whole number of blocks of ROW_GRAIN rows. Over
+# such a prefix every row-wise op splits the rows into the same vector
+# blocks as over the whole store (the CPU's vector kernels run a tail in
+# scalar code, whose exp / sigmoid may round the last bit otherwise), and
+# the rows above it start 16-byte aligned for the copy back.
+ROW_GRAIN = 64
+
+
+def high_water_mark(alive: torch.Tensor) -> int:
+    """The rows up to the last live one, rounded up to ``ROW_GRAIN`` and
+    at most the capacity: ``alive[mark:]`` is all false. One host read."""
+    c = alive.shape[0]
+    if c == 0:
+        return 0
+    rows = torch.arange(1, c + 1, dtype=torch.int32, device=alive.device)
+    last = int(torch.where(alive, rows, 0).max())
+    return min(c, -(-last // ROW_GRAIN) * ROW_GRAIN)
+
+
+# alive -> (alive._version, mark), held weakly: a tensor's version counter
+# moves with every in-place write to it or to a view of it, and a new
+# tensor is a new key, so no writer of ``alive`` has to update this.
+_MARKS = WeakIdKeyDictionary()
+
+
+def _cached_mark(alive: torch.Tensor) -> int:
+    version = alive._version
+    hit = _MARKS.get(alive)
+    if hit is not None and hit[0] == version:
+        return hit[1]
+    mark = high_water_mark(alive)
+    _MARKS[alive] = (version, mark)
+    return mark
 
 
 @dataclasses.dataclass
@@ -60,6 +100,24 @@ class GaussianState:
     @property
     def n_alive(self) -> torch.Tensor:
         return self.alive.sum()
+
+    @property
+    def high_water(self) -> int:
+        """Host int: every live row lies below it (``high_water_mark``).
+        Read from the card once after ``alive`` changes, then kept. With
+        ``skybox_last`` it is the capacity: the skybox lock addresses the
+        last rows of the store."""
+        if self.skybox_last and self.n_skybox:
+            return self.capacity
+        return _cached_mark(self.alive)
+
+    def prefix(self, rows: int) -> "GaussianState":
+        """Views of the first ``rows`` rows of every field (capacity
+        ``rows``); the store itself when ``rows`` is its capacity."""
+        if rows == self.capacity:
+            return self
+        return dataclasses.replace(
+            self, **{k: getattr(self, k)[:rows] for k in ALL_FIELDS})
 
     def to(self, device) -> "GaussianState":
         return dataclasses.replace(

@@ -22,21 +22,31 @@ step over a batched renderer that computes the same update as its
 ``make_dp_train_step``. The port has one dp step, held against both JAX
 builders in its tests.
 
+The flat step runs on the rows below the store's high-water mark
+(``GaussianState.high_water``): every row above it is dead, so its
+opacity is zero, projection culls it and the update leaves it as it is.
+The step takes views of the first rows of the state and of Adam's moments
+once, at entry, and at exit builds each output tensor as the updated rows
+followed by the untouched rest, so ``StepOutput`` keeps the store's
+capacity and the step never writes into its inputs. A store whose last
+row is alive runs on all its rows.
+
 The spans ``train.step`` / ``post.step`` hold a whole step and
 ``train.update`` / ``post.update`` its update (``utils/profiling.py``).
 
 Memory: the gradient accumulator is one extra copy of the parameters'
-gradients (59 floats a row).
+gradients (59 floats a row below the mark).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..config import OptimizationConfig
-from ..model.state import GaussianState
+from ..model.state import ALL_FIELDS, GaussianState
 from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig
 from ..train.post_step import (PostStepOutput, make_post_update,
@@ -67,6 +77,40 @@ def _accumulate(acc: Optional[dict], grads: dict) -> dict:
     return acc
 
 
+def _opt_prefix(opt: adam_lib.AdamState, rows: int) -> adam_lib.AdamState:
+    return adam_lib.AdamState(mu={k: v[:rows] for k, v in opt.mu.items()},
+                              nu={k: v[:rows] for k, v in opt.nu.items()},
+                              step=opt.step)
+
+
+def _write_back(full: torch.Tensor, part: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+    """``full`` with its first rows replaced by ``out``, the step's result
+    for the view ``part`` of them: a new tensor, or ``full`` itself when
+    the step left ``part`` as it was."""
+    return full if out is part else torch.cat([out, full[out.shape[0]:]])
+
+
+def _write_back_state(full: GaussianState, part: GaussianState,
+                      out: GaussianState) -> GaussianState:
+    if part is full:
+        return out
+    return dataclasses.replace(
+        out, **{k: _write_back(getattr(full, k), getattr(part, k),
+                               getattr(out, k)) for k in ALL_FIELDS})
+
+
+def _write_back_opt(full: adam_lib.AdamState, part: adam_lib.AdamState,
+                    out: adam_lib.AdamState) -> adam_lib.AdamState:
+    if part is full:
+        return out
+    return adam_lib.AdamState(
+        mu={k: _write_back(full.mu[k], part.mu[k], v)
+            for k, v in out.mu.items()},
+        nu={k: _write_back(full.nu[k], part.nu[k], v)
+            for k, v in out.nu.items()}, step=out.step)
+
+
 def make_dp_train_step(opt_cfg: OptimizationConfig,
                        raster_cfg: RasterizeConfig,
                        use_depth_loss: bool = True,
@@ -94,10 +138,13 @@ def make_dp_train_step(opt_cfg: OptimizationConfig,
         with profiling.span("train.step"):
             n_proc = _group_size(group)
             n_total = len(batch) * n_proc
+            part = state.prefix(state.high_water)
+            part_opt = (opt if part is state
+                        else _opt_prefix(opt, part.capacity))
             acc = g_exp = radii = visible = None
             photo = depth = n_dup = None
             for view in batch:
-                g = view_grads(state, exposure, view, iteration, bg,
+                g = view_grads(part, exposure, view, iteration, bg,
                                sh_degree)
                 with torch.no_grad():
                     grads = dict(g.g_params, _offset=g.g_offset)
@@ -136,10 +183,12 @@ def make_dp_train_step(opt_cfg: OptimizationConfig,
                     photo, depth = losses[0], losses[1]
                 g_offset = acc.pop("_offset")
             with profiling.span("train.update"):
-                new_state, new_opt, exposure, exposure_opt = update(
-                    state, opt, exposure, exposure_opt, acc, g_exp,
+                new_part, new_opt, exposure, exposure_opt = update(
+                    part, part_opt, exposure, exposure_opt, acc, g_exp,
                     g_offset, radii, visible, iteration, spatial_lr_scale,
                     cameras_extent)
+                new_state = _write_back_state(state, part, new_part)
+                new_opt = _write_back_opt(opt, part_opt, new_opt)
             return StepOutput(
                 state=new_state, opt=new_opt, exposure=exposure,
                 exposure_opt=exposure_opt, photo_loss=photo / n_total,

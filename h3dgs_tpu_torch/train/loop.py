@@ -283,6 +283,7 @@ def train_flat(cfg: FullConfig, scene: Scene, coarse: bool = False,
                 n_alive = int(state.n_alive)
                 profiling.count("train.alive_rows", n_alive)
                 profiling.count("train.capacity_rows", state.capacity)
+                profiling.count("train.step_rows", state.high_water)
                 if primary:
                     print(f"[{it}/{opt_cfg.iterations}] "
                           f"loss={log.ema_photo:.5f} "

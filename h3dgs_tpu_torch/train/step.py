@@ -131,7 +131,8 @@ def render_for_training(state: GaussianState, camera: Camera,
 
 class ViewGrads(NamedTuple):
     """One view's loss gradients and what the update reads of its
-    render."""
+    render. C is the capacity of the state given: in the dp step, the
+    rows below the store's high-water mark."""
     g_params: dict                # name -> [C, ...] gradient
     g_exposure: Optional[torch.Tensor]  # [3, 4] of the view's row
     g_offset: torch.Tensor        # [C, 2] screen-space offset gradient

@@ -734,3 +734,69 @@ def test_jpeg_views_reach_the_card(name):
     for f in ("gt_image", "alpha_mask", "invdepth", "depth_mask"):
         assert getattr(card, f).device.type == "cuda"
         assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+
+
+@pytest.mark.cuda
+def test_prefix_step_adds_no_sync(monkeypatch):
+    """An ordinary flat step on the rows below the store's high-water
+    mark makes no more synchronising CUDA calls (counted under
+    ``torch.cuda.set_sync_debug_mode``) than the same step on every
+    capacity row, the mark forced to the capacity: the mark is read once,
+    on the first step after ``alive`` changed, and never again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import warnings
+
+    from h3dgs_tpu_torch.config import OptimizationConfig
+    from h3dgs_tpu_torch.model import state as state_lib
+    from h3dgs_tpu_torch.ops import adam as adam_lib
+    from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
+    from h3dgs_tpu_torch.parallel.step import make_dp_train_step
+    from h3dgs_tpu_torch.train.step import ViewBatch
+
+    rng = np.random.default_rng(7)
+    n, cap, h, w = 2000, 8192, 96, 128
+    quats = rng.normal(size=(n, 4))
+    opac = rng.uniform(0.2, 0.9, (n, 1))
+    st = state_lib.from_arrays(
+        rng.uniform(-1, 1, (n, 3)), rng.uniform(-0.6, 0.6, (n, 1, 3)),
+        rng.normal(0, 0.1, (n, 3, 3)), np.log(opac / (1 - opac)),
+        np.log(rng.uniform(0.02, 0.1, (n, 3))), quats, capacity=cap,
+        max_sh_degree=1, n_skybox=4, n_scaffold=4, device="cuda")
+    cam = look_at_camera(eye=(0.3, -0.2, -3.2), target=(0, 0, 0), fovx=1.0,
+                         width=w, height=h).to("cuda")
+    ones = torch.ones((1, h, w), device="cuda")
+    view = ViewBatch(
+        camera=cam, gt_image=torch.rand((3, h, w), device="cuda"),
+        alpha_mask=ones, invdepth=0.3 * ones, depth_mask=ones,
+        depth_reliable=torch.tensor(True, device="cuda"),
+        image_idx=torch.tensor(0, device="cuda"))
+    exposure = torch.eye(3, 4, device="cuda")[None]
+    step = make_dp_train_step(OptimizationConfig(iterations=100),
+                              RasterizeConfig())
+    bg = torch.zeros(3, device="cuda")
+
+    def ordinary_step_syncs():
+        out = step(st, adam_lib.init(st.trainable_dict()), exposure,
+                   adam_lib.init({"exposure": exposure}), [view], 1, bg,
+                   2.0, 3.0, 1)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(out.state, out.opt, out.exposure, out.exposure_opt,
+                     [view], 2, bg, 2.0, 3.0, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sum("called a synchronizing CUDA operation" in str(x.message)
+                   for x in seen)
+
+    assert st.high_water == 2048
+    prefix = ordinary_step_syncs()
+    with monkeypatch.context() as m:
+        m.setattr(state_lib.GaussianState, "high_water",
+                  property(lambda s: s.capacity))
+        full = ordinary_step_syncs()
+    assert full > 0 and prefix <= full, (prefix, full)

@@ -5,7 +5,10 @@ vmapped ``make_parallel_train_step``), the dp post step against the JAX
 one, one view through the dp steps against the single-view steps, the
 loops' dp wiring (``train_flat`` / ``train_post`` with several views a
 step through their CLIs, the ``ValueError`` s, ``ViewStream``'s
-``keep_fn``), and two gloo processes against one process.
+``keep_fn``), two gloo processes against one process, and, port only,
+the dp flat step on the rows below the store's high-water mark against
+the step on every capacity row (bit for bit) and the mark against every
+writer of ``alive``.
 
 Tolerance for the dp steps: ``rtol=2e-4, atol=2e-5`` on parameters, both
 Adam moments, exposure and densification stats (``tests/test_dp_loop.py``'s
@@ -38,11 +41,13 @@ from h3dgs_tpu.parallel import step as jpar
 from h3dgs_tpu.train import step as jstep
 from h3dgs_tpu_torch.config import (FullConfig, ModelConfig,
                                     OptimizationConfig, RuntimeConfig)
+from h3dgs_tpu_torch.model import densify as tdens
 from h3dgs_tpu_torch.model import state as tstate
 from h3dgs_tpu_torch.ops import adam as tadam
 from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig as TRasterCfg
 from h3dgs_tpu_torch.parallel import step as tpar
 from h3dgs_tpu_torch.scene import loader as tloader
+from h3dgs_tpu_torch.train import checkpoint as tckpt
 from h3dgs_tpu_torch.train import loop as tloop
 from h3dgs_tpu_torch.train import post_step as tpost
 from h3dgs_tpu_torch.train import step as tstep
@@ -550,3 +555,235 @@ def test_dp_flat_config_fields():
     is a flag of every training CLI), with the JAX default."""
     names = {f.name: f.default for f in dataclasses.fields(RuntimeConfig)}
     assert names["views_per_step"] == 0 and names["data_devices"] == 1
+
+
+# ------------------------------------------------- rows below the mark ---
+
+PREFIX_CAP = 320
+
+
+def _prefix_store(last_row_alive: bool, n: int = 48, seed: int = 11):
+    """A flat store of ``PREFIX_CAP`` rows: 4 locked skybox rows and 4
+    scaffold rows first, a hole of dead rows among the live ones (rows
+    20-23 and 32-95), live rows up to row 111, dead rows above; the dead
+    rows, Adam's moments and the statistics hold noise that a step must
+    leave as it is. With ``last_row_alive`` the last row holds a copy of
+    row 10, so the mark is the capacity. Returns (state, opt, exposure,
+    exposure opt, four views)."""
+    means, scales, quats, opac, shs = random_scene(n, seed, sh_degree=1,
+                                                   spread=0.8)
+    opac[40:44] = 0.003  # pruned by the densify pass (min_opacity 0.005)
+    feats = np.zeros((n, 16, 3), np.float32)
+    feats[:, :4] = shs
+    st = tstate.from_arrays(
+        means, feats[:, :1], feats[:, 1:],
+        np.log(opac / (1 - opac))[:, None], np.log(scales), quats,
+        capacity=PREFIX_CAP, max_sh_degree=1, n_skybox=4, n_scaffold=4,
+        device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    src, dst = torch.arange(32, 48), torch.arange(96, 112)
+    fields = {}
+    for k in tstate.ALL_FIELDS:
+        t = getattr(st, k).clone()
+        if k != "alive":
+            noise = torch.randn(t.shape, generator=g)
+            if k == "denom":
+                noise = noise.abs().round()
+            t = torch.where(st.alive.reshape((-1,) + (1,) * (t.dim() - 1)),
+                            t, noise)
+        t[dst] = t[src]
+        t[src] = False if k == "alive" else t[src + 200]
+        if last_row_alive:
+            t[-1] = t[10]
+        fields[k] = t
+    fields["alive"][20:24] = False
+    st = dataclasses.replace(st, **fields)
+    opt = tadam.init(st.trainable_dict())
+    opt = tadam.AdamState(
+        mu={k: 0.01 * torch.randn(v.shape, generator=g)
+            for k, v in opt.mu.items()},
+        nu={k: 1e-4 * torch.rand(v.shape, generator=g)
+            for k, v in opt.nu.items()},
+        step=torch.tensor(3, dtype=torch.int32))
+    n_views, h, w = 4, 32, 32
+    rng = np.random.default_rng(seed)
+    exposure = torch.eye(3, 4).repeat(n_views, 1, 1) + t_(
+        rng.uniform(-0.02, 0.02, (n_views, 3, 4)).astype(np.float32))
+    alpha = np.ones((1, h, w), np.float32)
+    alpha[:, :2] = 0.0
+    views = []
+    for i, a in enumerate(np.linspace(0, np.pi, n_views, endpoint=False)):
+        cam = camera_pair((3 * np.sin(a), -0.4, -3 * np.cos(a)), fovx=1.1,
+                          width=w, height=h)[1]
+        views.append(tstep.ViewBatch(
+            camera=cam, gt_image=t_(rng.random((3, h, w)) * alpha),
+            alpha_mask=t_(alpha), invdepth=t_(0.3 * rng.random((1, h, w))),
+            depth_mask=t_(alpha), depth_reliable=torch.tensor(True),
+            image_idx=torch.tensor(i)))
+    return st, opt, exposure, tadam.init({"exposure": exposure}), views
+
+
+def _prefix_trajectory(views_per_step: int, coarse: bool,
+                       last_row_alive: bool):
+    """Seven dp steps with a densify pass that clones, splits, prunes
+    and fills holes, a capacity growth and an opacity reset between them.
+    Returns every step's outputs and the mark each step ran on."""
+    st, opt, exposure, exp_opt, views = _prefix_store(last_row_alive)
+    kw = (dict(use_depth_loss=False, use_exposure=False, freeze_xyz=True,
+               shrink_threshold=0.1) if coarse else {})
+    step = tpar.make_dp_train_step(OptimizationConfig(iterations=100),
+                                   TRasterCfg(), skybox_locked=True, **kw)
+    gen = torch.Generator().manual_seed(0)
+    bg = torch.full((3,), 0.5)
+    outs, marks = [], []
+    for it in range(1, 8):
+        batch = [views[(it * views_per_step + j) % len(views)]
+                 for j in range(views_per_step)]
+        marks.append(st.high_water)
+        out = step(st, opt, exposure, exp_opt, batch, it, bg, 2.0, 3.0, 1)
+        outs.append(out)
+        st, opt, exposure, exp_opt = (out.state, out.opt, out.exposure,
+                                      out.exposure_opt)
+        if it == 2:
+            st, opt, counts = tstep.densify_step(st, opt, gen, 1e-9, 0.005,
+                                                 3.0, 0.03)
+            assert all(int(c) > 0 for c in counts[:3]), counts
+        elif it == 4:
+            st = tstate.grow_capacity(st, PREFIX_CAP + 128)
+            opt = tadam.grow_rows(opt, PREFIX_CAP + 128)
+        elif it == 5:
+            st, opt = tstep.reset_opacity_step(st, opt)
+    return outs, marks
+
+
+def _assert_outputs_equal(a, b):
+    for f in tstate.ALL_FIELDS:
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+    for o, p in ((a.opt, b.opt), (a.exposure_opt, b.exposure_opt)):
+        assert o.mu.keys() == p.mu.keys()
+        for k in o.mu:
+            assert torch.equal(o.mu[k], p.mu[k]), k
+            assert torch.equal(o.nu[k], p.nu[k]), k
+        assert torch.equal(o.step, p.step)
+    for f in ("exposure", "photo_loss", "depth_loss", "n_visible",
+              "n_duplicates"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("views_per_step,coarse,last_row_alive", [
+    (1, False, False), (2, False, False), (1, True, False),
+    (1, False, True)], ids=["one_view", "two_views", "coarse",
+                            "last_row_alive"])
+def test_prefix_step_matches_full_capacity(views_per_step, coarse,
+                                           last_row_alive, monkeypatch):
+    """The dp step on the rows below the mark equals the step on every
+    capacity row (the mark forced to the capacity) bit for bit, over
+    seven steps across a densify pass with holes, a capacity growth and
+    an opacity reset: every leaf, ``alive``, the statistics, both
+    optimizers, the exposure, the losses and the counts."""
+    got, marks = _prefix_trajectory(views_per_step, coarse, last_row_alive)
+    with monkeypatch.context() as m:
+        m.setattr(tstate.GaussianState, "high_water",
+                  property(lambda s: s.capacity))
+        want, full = _prefix_trajectory(views_per_step, coarse,
+                                        last_row_alive)
+    caps = [PREFIX_CAP] * 4 + [PREFIX_CAP + 128] * 3
+    assert full == caps
+    if last_row_alive:  # the mark is the capacity until the growth
+        assert marks == [PREFIX_CAP] * 7
+    else:
+        assert marks[0] == 128 and all(m < c for m, c in zip(marks, caps))
+    for a, b in zip(got, want):
+        _assert_outputs_equal(a, b)
+    assert a.state.capacity == PREFIX_CAP + 128
+
+
+def _assert_mark_fits(st):
+    """The cached mark is the one computed afresh: every live row lies
+    below it, and a live row lies in its last block of rows."""
+    mark = st.high_water
+    assert mark == tstate.high_water_mark(st.alive)
+    assert not bool(st.alive[mark:].any())
+    live = torch.nonzero(st.alive)[:, 0]
+    assert mark == min(st.capacity, -(-(int(live[-1]) + 1)
+                                      // tstate.ROW_GRAIN) * tstate.ROW_GRAIN)
+
+
+@pytest.mark.parametrize("op", ["from_arrays", "grow_capacity",
+                                "densify_and_prune", "reset_opacity",
+                                "checkpoint", "in_place"])
+def test_mark_follows_alive(op, tmp_path):
+    """Whatever writes ``alive`` (a new store, a growth, a densify pass,
+    an opacity reset, a checkpoint loaded into another store, an in-place
+    write), the mark read afterwards is never stale."""
+    st, opt, exposure, exp_opt, _ = _prefix_store(False)
+    assert st.high_water == 128
+    if op == "from_arrays":
+        means, scales, quats, opac, shs = random_scene(150, 3)
+        st = tstate.from_arrays(
+            means, shs[:, :1], shs[:, 1:], np.log(opac / (1 - opac))[:, None],
+            np.log(scales), quats, capacity=PREFIX_CAP, max_sh_degree=1,
+            device="cpu")
+        assert st.high_water == 192
+        # The skybox lock of a skybox_last store addresses its last rows.
+        sky_last = tstate.from_arrays(
+            means, shs[:, :1], shs[:, 1:], np.log(opac / (1 - opac))[:, None],
+            np.log(scales), quats, capacity=PREFIX_CAP, max_sh_degree=1,
+            device="cpu", n_skybox=4, skybox_last=True)
+        assert sky_last.high_water == PREFIX_CAP
+    elif op == "grow_capacity":
+        st = tstate.grow_capacity(st, PREFIX_CAP + 128)
+        assert st.high_water == 128
+    elif op == "densify_and_prune":
+        res = tdens.densify_and_prune(st, torch.Generator().manual_seed(0),
+                                      1e-9, 0.005, 3.0, 0.03)
+        assert not torch.equal(res.state.alive, st.alive)
+        st = res.state
+    elif op == "reset_opacity":
+        st = tdens.reset_opacity(st)
+    elif op == "checkpoint":
+        path = str(tmp_path / "chkpnt.npz")
+        tckpt.save_flat(path, st, opt, exposure, exp_opt, 5)
+        other = _prefix_store(True)[0]
+        assert other.high_water == PREFIX_CAP
+        st = tckpt.load_flat(path, other)[0]
+        assert st.high_water == 128
+    else:
+        st.alive[300] = True
+        assert st.high_water == PREFIX_CAP
+        st.alive[256:].fill_(False)
+        assert st.high_water == 128
+    _assert_mark_fits(st)
+
+
+def test_mark_read_only_after_alive_changes(monkeypatch):
+    """Ordinary steps compute no mark: the first step reads it once, the
+    next three none, and the step after a densify pass once more."""
+    calls = []
+    compute = tstate.high_water_mark
+
+    def counted(alive):
+        calls.append(alive.shape[0])
+        return compute(alive)
+
+    monkeypatch.setattr(tstate, "high_water_mark", counted)
+    st, opt, exposure, exp_opt, views = _prefix_store(False)
+    step = tpar.make_dp_train_step(OptimizationConfig(iterations=100),
+                                   TRasterCfg())
+    bg = torch.zeros(3)
+
+    def run(it):
+        out = step(st, opt, exposure, exp_opt, [views[it % 4]], it, bg, 2.0,
+                   3.0, 1)
+        return out.state, out.opt, out.exposure, out.exposure_opt
+
+    st, opt, exposure, exp_opt = run(1)
+    assert len(calls) == 1
+    for it in range(2, 5):
+        st, opt, exposure, exp_opt = run(it)
+    assert len(calls) == 1
+    st, opt, _ = tstep.densify_step(st, opt, torch.Generator().manual_seed(0),
+                                    1e-9, 0.005, 3.0, 0.03)
+    st, opt, exposure, exp_opt = run(5)
+    st, opt, exposure, exp_opt = run(6)
+    assert len(calls) == 2
