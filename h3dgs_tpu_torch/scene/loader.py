@@ -32,7 +32,7 @@ import torch
 
 from ..io.image import read_image
 from ..preprocess.imgproc import load_unchanged, resize_area
-from ..train.step import ViewBatch
+from ..train.step import StagedView, ViewBatch, stage_view
 from .camera import make_camera
 from .dataset import CameraInfo
 
@@ -126,11 +126,21 @@ def load_view(info: CameraInfo, resolution: int = -1,
     )
 
 
+def _decode(info, resolution, train_test_exp, image_idx, pin):
+    """A decode worker's job: ``load_view``, then, when ``pin`` is not
+    None, ``stage_view`` of its result."""
+    view = load_view(info, resolution, 1.0, train_test_exp, False,
+                     image_idx)
+    return view if pin is None else stage_view(view, pin)
+
+
 class ViewStream:
     """Endless shuffled prefetching iterator over training views.
 
     Epochs are re-shuffled with a seeded numpy generator; ``prefetch``
-    decode jobs run ahead on a thread pool.
+    decode jobs run ahead on a thread pool. After ``stage(device)`` each
+    job also encodes its view into one record for ``device``
+    (``train/step.stage_view``) and the stream yields ``StagedView``s.
     """
 
     def __init__(self, infos: Sequence[CameraInfo], resolution: int = -1,
@@ -153,6 +163,7 @@ class ViewStream:
         self._perm: List[int] = []
         self._pos = 0
         self._gpos = 0
+        self._pin = None     # None: yield host views; else stage them
 
     def _next_index(self) -> int:
         while True:
@@ -172,8 +183,13 @@ class ViewStream:
     def _submit(self):
         i = self._next_index()
         self._queue.append(self.pool.submit(
-            load_view, self.infos[i], self.resolution, 1.0,
-            self.train_test_exp, False, i))
+            _decode, self.infos[i], self.resolution, self.train_test_exp,
+            i, self._pin))
+
+    def stage(self, device) -> None:
+        """Have the jobs submitted from now on stage their views for
+        ``device``, in pinned memory for a CUDA device."""
+        self._pin = torch.device(device).type == "cuda"
 
     def __iter__(self):
         return self
@@ -183,7 +199,7 @@ class ViewStream:
         wait for it)."""
         return bool(self._queue) and self._queue[0].done()
 
-    def __next__(self) -> ViewBatch:
+    def __next__(self) -> ViewBatch | StagedView:
         while len(self._queue) < self.prefetch:
             self._submit()
         fut = self._queue.pop(0)

@@ -37,8 +37,8 @@ from ..parallel import step as dp_lib
 from ..utils import profiling
 from . import checkpoint as ckpt_lib
 from .post_step import sample_limit
-from .step import (batch_to_device, densify_step, encode_view,
-                   reset_opacity_step)
+from .step import (StagedView, densify_step, reset_opacity_step,
+                   stage_view, staged_to_device)
 
 
 def raster_config(cfg: FullConfig) -> RasterizeConfig:
@@ -56,36 +56,52 @@ def _capacity_bucket(cap: int, n_drop: int, max_cap: int) -> int:
 
 
 class BatchedPrefetcher:
-    """Encode this process's next ``batch_size`` views (uint8 / f16) and
-    start their transfer to the device through pinned memory, one step
-    ahead, while the current step computes. Yields (host views, device
-    views) as lists.
+    """Take this process's next ``batch_size`` views and start their
+    transfer to the device, one step ahead, while the current step
+    computes. Yields (host views, device views) as lists.
+
+    A stream with a ``stage`` method (``ViewStream``) is asked to stage
+    its views for the device: its decode workers encode each view
+    (uint8 / f16) into one record (``stage_view``), pinned for a CUDA
+    device. Another iterator's host views are staged here, on the step's
+    thread. Either way each view reaches the device as one
+    ``non_blocking`` copy of its record (``staged_to_device``).
 
     ``__next__`` is the span ``view.next``, which begins a step's ordinal;
-    inside it ``view.wait`` (blocked on the stream), ``view.encode`` and
-    ``view.copy`` (pin and copy to the device), and the counter
-    ``view.ready`` adds 1 for each view the stream had already decoded."""
+    inside it ``view.wait`` (blocked on the stream), ``view.encode`` (a
+    view the stream did not stage) and ``view.copy``. The counter
+    ``view.ready`` adds 1 for each view the stream had already decoded,
+    ``view.staged`` 1 for each view that arrived staged and 0 for each
+    that did not."""
 
     def __init__(self, stream, batch_size: int, device):
         self.stream = stream
         self.batch_size = batch_size
         self.device = device
+        self._pin = torch.device(device).type == "cuda"
         # ViewStream.ready; another iterator leaves the counter out.
         self._ready = getattr(stream, "ready", None)
+        stage = getattr(stream, "stage", None)
+        if stage is not None:
+            stage(device)
         self._next = self._launch()
 
     def _launch(self):
-        hosts, devs = [], []
+        views, hosts, devs = [], [], []
         for _ in range(self.batch_size):
             if self._ready is not None:
                 profiling.count("view.ready", int(self._ready()))
             with profiling.span("view.wait"):
-                hosts.append(next(self.stream))
-        for h in hosts:
-            with profiling.span("view.encode"):
-                coded = encode_view(h)
+                views.append(next(self.stream))
+        for v in views:
+            staged = isinstance(v, StagedView)
+            profiling.count("view.staged", int(staged))
+            if not staged:
+                with profiling.span("view.encode"):
+                    v = stage_view(v, self._pin)
+            hosts.append(v.host)
             with profiling.span("view.copy"):
-                devs.append(batch_to_device(coded, self.device))
+                devs.append(staged_to_device(v, self.device))
         return hosts, devs
 
     def __next__(self):

@@ -737,6 +737,97 @@ def test_jpeg_views_reach_the_card(name):
 
 
 @pytest.mark.cuda
+def test_staged_views_reach_the_card_without_sync():
+    """Views staged in the decode pool reach the card as today's route
+    moves them: a ``ViewStream`` over committed fixtures (the 1600x900
+    JPEG view with a mask and a depth map, a 257x129 one without either)
+    feeds the prefetcher on the card, and each device view equals
+    ``batch_to_device(encode_view(load_view(...)), "cuda")`` bit for bit.
+    In steady state ``next(prefetch)`` makes no synchronising CUDA call
+    (counted under ``torch.cuda.set_sync_debug_mode``), nor does it when a
+    plain iterator hands it the same views and it stages them itself. A
+    record staged for the card is pinned: a pageable one would copy
+    without a counted synchronising call, yet wait for the queue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    import warnings
+
+    from h3dgs_tpu_torch.scene.dataset import CameraInfo
+    from h3dgs_tpu_torch.scene.loader import ViewStream, load_view
+    from h3dgs_tpu_torch.train.loop import BatchedPrefetcher
+    from h3dgs_tpu_torch.train.step import (batch_to_device, encode_view,
+                                            stage_view)
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+    def info(image, mask="", depth=""):
+        return CameraInfo(
+            uid=0, R=np.eye(3), T=np.array([0.1, -0.2, 3.0]), fovx=1.1,
+            fovy=0.7, primx=0.5, primy=0.5, width=0, height=0,
+            image_path=os.path.join(data, image), image_name=image,
+            mask_path=os.path.join(data, mask) if mask else "",
+            depth_path=os.path.join(data, depth) if depth else "",
+            depth_params={"scale": 1.5, "offset": 0.01, "med_scale": 1.2})
+
+    infos = [info("torch_jpeg/view_420_1600x900.jpg",
+                  "torch_png/c0_d8_37x41.png", "torch_png/c0_d16_37x41.png"),
+             info("torch_jpeg/pil_420_q90_257x129.jpg")]
+
+    class Plain:
+        def __init__(self, stream):
+            self.stream = stream
+
+        def __next__(self):
+            return next(self.stream)
+
+    def syncs_and_views(staged):
+        stream = ViewStream(infos, num_workers=2, shuffle=False)
+        pf = BatchedPrefetcher(stream if staged else Plain(stream), 1,
+                               "cuda")
+        try:
+            views = [next(pf) for _ in range(3)]      # warm
+            torch.cuda.synchronize()
+            n = 0
+            for _ in range(4):
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        views.append(next(pf))
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                n += sum("called a synchronizing CUDA operation"
+                         in str(x.message) for x in seen)
+            torch.cuda.synchronize()
+        finally:
+            stream.close()
+        return n, views
+
+    assert stage_view(load_view(infos[1], -1), pin=True).record.is_pinned()
+    staged_syncs, views = syncs_and_views(True)
+    plain_syncs, plain_views = syncs_and_views(False)
+    assert staged_syncs == plain_syncs == 0, (staged_syncs, plain_syncs)
+    for k, (hosts, devs) in enumerate(views + plain_views):
+        i = k % len(views) % len(infos)
+        assert int(hosts[0].image_idx) == i
+        want = batch_to_device(encode_view(load_view(infos[i], -1,
+                                                     image_idx=i)), "cuda")
+        got = devs[0]
+        assert (got.camera.height, got.camera.width) == (
+            want.camera.height, want.camera.width)
+        for f in ("gt_image", "alpha_mask", "invdepth", "depth_mask",
+                  "depth_reliable", "image_idx"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.device.type == "cuda" and a.dtype == b.dtype, f
+            assert torch.equal(a.cpu(), b.cpu()), f
+        for f in ("view", "full_proj", "cam_center", "tanfovx", "tanfovy"):
+            a, b = getattr(got.camera, f), getattr(want.camera, f)
+            assert a.device.type == "cuda" and a.shape == b.shape, f
+            assert torch.equal(a.cpu(), b.cpu()), f
+
+
+@pytest.mark.cuda
 def test_prefix_step_adds_no_sync(monkeypatch):
     """An ordinary flat step on the rows below the store's high-water
     mark makes no more synchronising CUDA calls (counted under

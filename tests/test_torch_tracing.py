@@ -231,13 +231,19 @@ def test_post_cut_rows_counter(hier, tmp_path):
         "total": int(out[-1]), "samples": 1}
 
 
-def test_view_spans_and_ready_counter(tmp_path):
-    """``view.next`` begins a step and holds the wait, the encode and the
-    copy; ``view.ready`` counts the views the stream had decoded."""
+def _host_view():
     *_, tb = _step_setup()
-    host = tb._replace(**{k: np_(getattr(tb, k)) for k in
+    return tb._replace(**{k: np_(getattr(tb, k)) for k in
                           ("gt_image", "alpha_mask", "invdepth",
                            "depth_mask", "depth_reliable", "image_idx")})
+
+
+def test_view_spans_and_ready_counter(tmp_path):
+    """A plain iterator of host views, which the prefetcher stages on the
+    step's thread: ``view.next`` begins a step and holds the wait, the
+    encode and the copy; ``view.ready`` counts the views the stream had
+    decoded, ``view.staged`` adds 0 a view."""
+    host = _host_view()
 
     class Stream:
         def __init__(self):
@@ -260,6 +266,37 @@ def test_view_spans_and_ready_counter(tmp_path):
                             ("view.next", "view.copy")}
     assert [s[4] for s in snap["spans"] if s[0] == "view.next"] == [0, 1, 2]
     assert snap["counters"]["view.ready"] == {"total": 1, "samples": 3}
+    assert snap["counters"]["view.staged"] == {"total": 0, "samples": 3}
+
+
+def test_staged_view_spans_and_counter(tmp_path):
+    """A stream that stages its views (as ``ViewStream.stage`` makes it):
+    the prefetcher asks it to stage for its device, and ``view.next``
+    holds only the wait and the copy, with no ``view.encode``;
+    ``view.staged`` adds 1 a view."""
+    host = _host_view()
+
+    class Stream:
+        device = None
+
+        def stage(self, device):
+            self.device = device
+
+        def __next__(self):
+            return tstep.stage_view(host, pin=False)
+
+    stream = Stream()
+    pf = tloop.BatchedPrefetcher(stream, 1, "cpu")
+    assert stream.device == "cpu"
+    with profiling.trace(str(tmp_path)):
+        for _ in range(3):
+            next(pf)
+    snap = profiling.snapshot()
+    assert _edges(snap) == {(None, "view.next"), ("view.next", "view.wait"),
+                            ("view.next", "view.copy")}
+    assert [s[4] for s in snap["spans"] if s[0] == "view.next"] == [0, 1, 2]
+    assert snap["counters"]["view.staged"] == {"total": 3, "samples": 3}
+    assert "view.ready" not in snap["counters"]
 
 
 # ------------------------------------------------------- frame counters --
