@@ -1063,14 +1063,13 @@ def train_stage_times(state, batch, sh_degree: int, opt_cfg, reps: int = 5):
     from h3dgs_tpu_torch.ops.projection import (ProjectedGaussians,
                                                 project_gaussians)
     from h3dgs_tpu_torch.ops.rasterize import blend_args
-    from h3dgs_tpu_torch.train.step import apply_exposure, decode_view
+    from h3dgs_tpu_torch.train.step import apply_exposure
     from h3dgs_tpu_torch.utils import losses, schedules
 
     names = ("project", "bin", "blend_fwd K1", "loss",
              "backward (K2 + projection)", "adam + stats + shrink")
     acc = dict.fromkeys(names + ("total",), 0.0)
-    b = decode_view(batch)
-    cam = b.camera
+    cam = batch.camera
     opt = adam_lib.init(state.trainable_dict())
     exposure = torch.eye(3, 4, device=state.device)
     k2_inputs = None
@@ -1095,10 +1094,11 @@ def train_stage_times(state, batch, sh_degree: int, opt_cfg, reps: int = 5):
                                                    cam.width)
         ev[3].record()
         image = torch.clamp(apply_exposure(color, exposure), 0.0, 1.0)
-        image = image * b.alpha_mask
-        photo = losses.photometric_loss(image, b.gt_image,
+        image = image * batch.alpha_mask
+        photo = losses.photometric_loss(image, batch.gt_image,
                                         opt_cfg.lambda_dssim)
-        depth = torch.mean(torch.abs(invd - b.invdepth) * b.depth_mask)
+        depth = torch.mean(torch.abs(invd - batch.invdepth)
+                           * batch.depth_mask)
         loss = photo + depth
         ev[4].record()
         inputs = list(params.values()) + [offset, color, invd, final_t]
@@ -1125,7 +1125,7 @@ def train_stage_times(state, batch, sh_degree: int, opt_cfg, reps: int = 5):
         k2_inputs = (tuple(a.detach() for a in args), color.detach(),
                      invd.detach(), final_t.detach(), last,
                      tuple(c.contiguous() for c in cot), cam.height,
-                     cam.width, image.detach(), b.gt_image)
+                     cam.width, image.detach(), batch.gt_image)
         del new, grads, proj
     return acc, k2_inputs
 
@@ -1202,15 +1202,14 @@ def post_stage_times(state, batch, nodes, boxes, anchor_mask, exp_row,
     from h3dgs_tpu_torch.ops.projection import (ProjectedGaussians,
                                                 project_gaussians)
     from h3dgs_tpu_torch.ops.rasterize import blend_args
-    from h3dgs_tpu_torch.train.step import apply_exposure, decode_view
+    from h3dgs_tpu_torch.train.step import apply_exposure
     from h3dgs_tpu_torch.utils import losses, schedules
 
     names = ("select", "interpolate (table + gather + sky)", "project",
              "bin", "blend_fwd K1", "loss", "backward (K2 + autograd)",
              "locks + dense adam")
     acc = dict.fromkeys(names + ("total",), 0.0)
-    b = decode_view(batch)
-    cam = b.camera
+    cam = batch.camera
     opt = adam_lib.init(state.trainable_dict())
     n_sky, cap = state.n_skybox, state.capacity
     k = (sh_degree + 1) ** 2
@@ -1243,8 +1242,8 @@ def post_stage_times(state, batch, nodes, boxes, anchor_mask, exp_row,
                                              cam.height, cam.width)
         ev[5].record()
         image = torch.clamp(apply_exposure(color, exp_row), 0.0, 1.0)
-        photo = losses.photometric_loss(image * b.alpha_mask, b.gt_image,
-                                        opt_cfg.lambda_dssim)
+        photo = losses.photometric_loss(image * batch.alpha_mask,
+                                        batch.gt_image, opt_cfg.lambda_dssim)
         ev[6].record()
         grads = torch.autograd.grad(photo, list(params.values()),
                                     allow_unused=True,
@@ -1582,7 +1581,7 @@ def training_phase(tmp: str, rng, look_at_camera):
     from h3dgs_tpu_torch.io.meta import read_exposure_json
     from h3dgs_tpu_torch.io.ply import read_gaussian_ply
     from h3dgs_tpu_torch.scene.loader import load_view
-    from h3dgs_tpu_torch.train.step import batch_to_device, encode_view
+    from h3dgs_tpu_torch.scene.views import stage_view, staged_to_device
 
     t0 = time.perf_counter()
     src = os.path.join(tmp, "chunk")
@@ -1632,7 +1631,8 @@ def training_phase(tmp: str, rng, look_at_camera):
 
     # Per-stage split of one step on the final state.
     scene = rec["scene"]
-    batches = [batch_to_device(encode_view(load_view(info, -1)), DEVICE)
+    batches = [staged_to_device(stage_view(load_view(info, -1), pin=True),
+                                DEVICE)
                for info in scene.info.train_cameras[:DP_VIEWS]]
     batch = batches[0]
     stages, k2_inputs = train_stage_times(state, batch, 0,
@@ -2332,7 +2332,7 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
     from h3dgs_tpu_torch.config import OptimizationConfig
     from h3dgs_tpu_torch.hierarchy.io import read_anchors, read_hier
     from h3dgs_tpu_torch.scene.loader import load_view
-    from h3dgs_tpu_torch.train.step import batch_to_device, encode_view
+    from h3dgs_tpu_torch.scene.views import stage_view, staged_to_device
     from h3dgs_tpu_torch.viewer.service import HierarchyRenderer
 
     # --- hierarchy creation (host), both backends ---
@@ -2413,7 +2413,7 @@ def post_phase(tmp: str, flat_out: str, src: str, sc_dir: str,
     # --- stages and busy share of one post step on the final state ---
     scene = rec["scene"]
     view = load_view(scene.info.train_cameras[0], -1)
-    batch = batch_to_device(encode_view(view), DEVICE)
+    batch = staged_to_device(stage_view(view, pin=True), DEVICE)
     nodes = torch.as_tensor(h0.nodes, device=DEVICE)
     boxes = torch.as_tensor(h0.boxes, device=DEVICE)
     amask = torch.as_tensor(scene.anchor_mask, device=DEVICE)

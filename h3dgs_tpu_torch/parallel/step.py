@@ -49,10 +49,10 @@ from ..config import OptimizationConfig
 from ..model.state import ALL_FIELDS, GaussianState
 from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig
+from ..scene.views import ViewBatch
 from ..train.post_step import (PostStepOutput, make_post_update,
                                make_post_view_grads)
-from ..train.step import (StepOutput, ViewBatch, make_update,
-                          make_view_grads)
+from ..train.step import StepOutput, make_update, make_view_grads
 from ..utils import profiling
 
 

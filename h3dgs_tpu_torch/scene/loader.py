@@ -32,9 +32,9 @@ import torch
 
 from ..io.image import read_image
 from ..preprocess.imgproc import load_unchanged, resize_area
-from ..train.step import StagedView, ViewBatch, stage_view
 from .camera import make_camera
 from .dataset import CameraInfo
+from .views import StagedView, ViewBatch, stage_view
 
 
 def _resolution(orig_w: int, orig_h: int, resolution: int,
@@ -127,26 +127,26 @@ def load_view(info: CameraInfo, resolution: int = -1,
 
 
 def _decode(info, resolution, train_test_exp, image_idx, pin):
-    """A decode worker's job: ``load_view``, then, when ``pin`` is not
-    None, ``stage_view`` of its result."""
-    view = load_view(info, resolution, 1.0, train_test_exp, False,
-                     image_idx)
-    return view if pin is None else stage_view(view, pin)
+    """A decode worker's job: ``load_view``, then ``stage_view`` of its
+    result."""
+    return stage_view(load_view(info, resolution, 1.0, train_test_exp,
+                                False, image_idx), pin)
 
 
 class ViewStream:
-    """Endless shuffled prefetching iterator over training views.
+    """Endless shuffled prefetching iterator over training views, staged
+    for ``device``.
 
     Epochs are re-shuffled with a seeded numpy generator; ``prefetch``
-    decode jobs run ahead on a thread pool. After ``stage(device)`` each
-    job also encodes its view into one record for ``device``
-    (``train/step.stage_view``) and the stream yields ``StagedView``s.
+    decode jobs run ahead on a thread pool, each decoding its view and
+    packing it into one record (``views.stage_view``), pinned for a CUDA
+    device. The stream yields ``StagedView``s.
     """
 
-    def __init__(self, infos: Sequence[CameraInfo], resolution: int = -1,
-                 train_test_exp: bool = False, num_workers: int = 8,
-                 prefetch: int = 8, seed: int = 0, shuffle: bool = True,
-                 keep_fn=None):
+    def __init__(self, infos: Sequence[CameraInfo], device,
+                 resolution: int = -1, train_test_exp: bool = False,
+                 num_workers: int = 8, prefetch: int = 8, seed: int = 0,
+                 shuffle: bool = True, keep_fn=None):
         self.infos = list(infos)
         self.resolution = resolution
         self.train_test_exp = train_test_exp
@@ -163,7 +163,7 @@ class ViewStream:
         self._perm: List[int] = []
         self._pos = 0
         self._gpos = 0
-        self._pin = None     # None: yield host views; else stage them
+        self._pin = torch.device(device).type == "cuda"
 
     def _next_index(self) -> int:
         while True:
@@ -186,11 +186,6 @@ class ViewStream:
             _decode, self.infos[i], self.resolution, self.train_test_exp,
             i, self._pin))
 
-    def stage(self, device) -> None:
-        """Have the jobs submitted from now on stage their views for
-        ``device``, in pinned memory for a CUDA device."""
-        self._pin = torch.device(device).type == "cuda"
-
     def __iter__(self):
         return self
 
@@ -199,7 +194,7 @@ class ViewStream:
         wait for it)."""
         return bool(self._queue) and self._queue[0].done()
 
-    def __next__(self) -> ViewBatch | StagedView:
+    def __next__(self) -> StagedView:
         while len(self._queue) < self.prefetch:
             self._submit()
         fut = self._queue.pop(0)

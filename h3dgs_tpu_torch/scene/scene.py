@@ -150,7 +150,7 @@ class Scene:
 
     def train_stream(self, seed: int = 0, num_workers: int = 8,
                      shuffle: bool = True, keep_fn=None) -> ViewStream:
-        return ViewStream(self.info.train_cameras,
+        return ViewStream(self.info.train_cameras, self.device,
                           resolution=self.cfg.resolution,
                           train_test_exp=self.cfg.train_test_exp,
                           num_workers=num_workers, seed=seed,

@@ -33,12 +33,12 @@ from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig
 from ..parallel import multihost as mh
 from ..scene.scene import Scene
+from ..scene.views import staged_to_device
 from ..parallel import step as dp_lib
 from ..utils import profiling
 from . import checkpoint as ckpt_lib
 from .post_step import sample_limit
-from .step import (StagedView, densify_step, reset_opacity_step,
-                   stage_view, staged_to_device)
+from .step import densify_step, reset_opacity_step
 
 
 def raster_config(cfg: FullConfig) -> RasterizeConfig:
@@ -60,49 +60,37 @@ class BatchedPrefetcher:
     transfer to the device, one step ahead, while the current step
     computes. Yields (host views, device views) as lists.
 
-    A stream with a ``stage`` method (``ViewStream``) is asked to stage
-    its views for the device: its decode workers encode each view
-    (uint8 / f16) into one record (``stage_view``), pinned for a CUDA
-    device. Another iterator's host views are staged here, on the step's
-    thread. Either way each view reaches the device as one
-    ``non_blocking`` copy of its record (``staged_to_device``).
+    ``stream`` yields ``StagedView``s (``ViewStream``, staged for
+    ``device``): each view reaches the device as one ``non_blocking``
+    copy of its record and is decoded there to float32
+    (``views.staged_to_device``).
 
     ``__next__`` is the span ``view.next``, which begins a step's ordinal;
-    inside it ``view.wait`` (blocked on the stream), ``view.encode`` (a
-    view the stream did not stage) and ``view.copy``. The counter
-    ``view.ready`` adds 1 for each view the stream had already decoded,
-    ``view.staged`` 1 for each view that arrived staged and 0 for each
-    that did not."""
+    inside it ``view.wait`` (blocked on the stream) and ``view.copy``
+    (the copy and the decode). The counter ``view.ready`` adds 1 for each
+    view the stream had already decoded, ``view.staged`` 1 for each
+    view."""
 
     def __init__(self, stream, batch_size: int, device):
         self.stream = stream
         self.batch_size = batch_size
         self.device = device
-        self._pin = torch.device(device).type == "cuda"
         # ViewStream.ready; another iterator leaves the counter out.
         self._ready = getattr(stream, "ready", None)
-        stage = getattr(stream, "stage", None)
-        if stage is not None:
-            stage(device)
         self._next = self._launch()
 
     def _launch(self):
-        views, hosts, devs = [], [], []
+        views, devs = [], []
         for _ in range(self.batch_size):
             if self._ready is not None:
                 profiling.count("view.ready", int(self._ready()))
             with profiling.span("view.wait"):
                 views.append(next(self.stream))
         for v in views:
-            staged = isinstance(v, StagedView)
-            profiling.count("view.staged", int(staged))
-            if not staged:
-                with profiling.span("view.encode"):
-                    v = stage_view(v, self._pin)
-            hosts.append(v.host)
+            profiling.count("view.staged", 1)
             with profiling.span("view.copy"):
                 devs.append(staged_to_device(v, self.device))
-        return hosts, devs
+        return [v.host for v in views], devs
 
     def __next__(self):
         with profiling.span("view.next", begins=True):

@@ -27,9 +27,10 @@ from ..model.state import GaussianState
 from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig, rasterize
 from ..scene.camera import Camera
+from ..scene.views import ViewBatch
 from ..utils import losses as loss_lib
 from ..utils import profiling, schedules
-from .step import ViewBatch, apply_exposure, decode_view
+from .step import apply_exposure
 
 LIMIT_MIN = 0.005
 LIMIT_MAX = 0.1
@@ -141,7 +142,6 @@ def make_post_view_grads(opt_cfg: OptimizationConfig,
                    nodes: torch.Tensor, boxes: torch.Tensor,
                    exposure_row: torch.Tensor, limit, bg: torch.Tensor,
                    sh_degree: int) -> PostViewGrads:
-        batch = decode_view(batch)
         exp_row = exposure_row if use_exposure else None
         names = list(state.trainable_dict())
         params = {k: v.detach().requires_grad_(True)

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..config import OptimizationConfig
@@ -31,142 +30,9 @@ from ..model.state import GaussianState
 from ..ops import adam as adam_lib
 from ..ops.rasterize import RasterizeConfig, rasterize
 from ..scene.camera import Camera
+from ..scene.views import ViewBatch
 from ..utils import losses as loss_lib
 from ..utils import profiling, schedules
-
-
-class ViewBatch(NamedTuple):
-    """One training view's data."""
-    camera: Camera
-    gt_image: torch.Tensor       # [3, H, W], already alpha-masked
-    alpha_mask: torch.Tensor     # [1, H, W]
-    invdepth: torch.Tensor       # [1, H, W] scaled mono inverse depth (or 0s)
-    depth_mask: torch.Tensor     # [1, H, W]
-    depth_reliable: torch.Tensor  # [] bool
-    image_idx: torch.Tensor      # [] int64 (exposure row)
-
-
-def _q8(x, out: np.ndarray) -> np.ndarray:
-    """``x`` (in [0, 1]) into the uint8 array ``out``: clip(x * 255 +
-    0.5) truncated, in ``x``'s own precision."""
-    t = np.asarray(x) * 255.0
-    t += 0.5
-    np.clip(t, 0, 255, out=t)
-    np.copyto(out, t, casting="unsafe")
-    return out
-
-
-def encode_view(batch: ViewBatch) -> ViewBatch:
-    """Compact host arrays for the transfer: images and masks as uint8
-    (the PNG sources are 8-bit), inverse depth as f16."""
-    def q8(x):
-        return _q8(x, np.empty(np.shape(x), np.uint8))
-
-    return batch._replace(
-        gt_image=q8(batch.gt_image),
-        alpha_mask=q8(batch.alpha_mask),
-        depth_mask=q8(batch.depth_mask),
-        invdepth=np.asarray(batch.invdepth, np.float16))
-
-
-def decode_view(batch: ViewBatch) -> ViewBatch:
-    """On-device inverse of ``encode_view``; float32 batches pass
-    through."""
-    def dec(x):
-        return (x.to(torch.float32) / 255.0 if x.dtype == torch.uint8
-                else x)
-
-    return batch._replace(
-        gt_image=dec(batch.gt_image),
-        alpha_mask=dec(batch.alpha_mask),
-        depth_mask=dec(batch.depth_mask),
-        invdepth=batch.invdepth.to(torch.float32))
-
-
-def batch_to_device(batch: ViewBatch, device) -> ViewBatch:
-    """Host (numpy) ViewBatch -> tensors on ``device``. On a CUDA device
-    the arrays go through pinned memory with ``non_blocking=True``."""
-    device = torch.device(device)
-    pin = device.type == "cuda"
-
-    def move(x):
-        t = torch.as_tensor(np.asarray(x)).contiguous()
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=pin)
-
-    return ViewBatch(
-        camera=batch.camera.to(device),
-        gt_image=move(batch.gt_image), alpha_mask=move(batch.alpha_mask),
-        invdepth=move(batch.invdepth), depth_mask=move(batch.depth_mask),
-        depth_reliable=move(np.asarray(batch.depth_reliable, bool)),
-        image_idx=move(np.asarray(batch.image_idx, np.int64)))
-
-
-_CAMERA = ("view", "full_proj", "cam_center", "tanfovx", "tanfovy")
-_IMAGES = ("gt_image", "alpha_mask", "depth_mask")
-_STAGE_ALIGN = 256   # bytes; every field of a record starts at a multiple
-
-
-class StagedView(NamedTuple):
-    """A host view (``host``) and what ``batch_to_device(encode_view(
-    host))`` moves, packed into one uint8 ``record`` (pinned for a CUDA
-    device). ``fields``: (name, dtype, shape, byte offset) of each leaf
-    in the record."""
-    host: ViewBatch
-    record: torch.Tensor
-    fields: tuple
-
-
-def stage_view(batch: ViewBatch, pin: bool) -> StagedView:
-    """Encode a host view as ``encode_view`` does, straight into one
-    record: the camera's tensors, ``image_idx`` (int64),
-    ``depth_reliable`` (bool), ``invdepth`` (f16), then the uint8 image
-    and masks, the record's size following the view's own shape. Runs on
-    a decode worker; ``pin`` allocates the record in pinned memory, which
-    PyTorch's host allocator reuses once the record's copy has run."""
-    cam = batch.camera
-    leaves = [(k, getattr(cam, k).numpy(), getattr(cam, k).dtype)
-              for k in _CAMERA]
-    leaves += [("image_idx", batch.image_idx, torch.int64),
-               ("depth_reliable", batch.depth_reliable, torch.bool),
-               ("invdepth", batch.invdepth, torch.float16)]
-    leaves += [(k, getattr(batch, k), torch.uint8) for k in _IMAGES]
-    fields, size = [], 0
-    for k, a, dtype in leaves:
-        size = -(-size // _STAGE_ALIGN) * _STAGE_ALIGN
-        fields.append((k, dtype, np.shape(a), size))
-        size += dtype.itemsize * int(np.prod(np.shape(a)))
-    record = torch.empty(size, dtype=torch.uint8, pin_memory=pin)
-    for (k, a, _), field in zip(leaves, fields):
-        out = _field(record, *field[1:]).numpy()
-        if k in _IMAGES:
-            _q8(a, out)
-        else:
-            np.copyto(out, a, casting="unsafe")
-    return StagedView(batch, record, tuple(fields))
-
-
-def _field(buf: torch.Tensor, dtype, shape, off: int) -> torch.Tensor:
-    """The leaf of a record (host or device) at byte ``off``."""
-    n = dtype.itemsize * int(np.prod(shape))
-    return buf[off:off + n].view(dtype).view(shape)
-
-
-def staged_to_device(staged: StagedView, device) -> ViewBatch:
-    """The device ViewBatch of a staged view, bit-equal to
-    ``batch_to_device(encode_view(staged.host), device)``: one
-    ``non_blocking`` copy of the record on the current stream, every leaf
-    a view into that one buffer, no synchronising call."""
-    buf = staged.record.to(device, non_blocking=True)
-    t = {k: _field(buf, *rest) for k, *rest in staged.fields}
-    cam = staged.host.camera
-    return ViewBatch(
-        camera=Camera(*(t[k] for k in _CAMERA), height=cam.height,
-                      width=cam.width),
-        gt_image=t["gt_image"], alpha_mask=t["alpha_mask"],
-        invdepth=t["invdepth"], depth_mask=t["depth_mask"],
-        depth_reliable=t["depth_reliable"], image_idx=t["image_idx"])
 
 
 class StepOutput(NamedTuple):
@@ -228,7 +94,6 @@ def make_view_grads(opt_cfg: OptimizationConfig,
     def view_grads(state: GaussianState, exposure: torch.Tensor,
                    batch: ViewBatch, iteration, bg: torch.Tensor,
                    sh_degree: int) -> ViewGrads:
-        batch = decode_view(batch)
         names = list(state.trainable_dict())
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.trainable_dict().items()}

@@ -136,7 +136,7 @@ def main() -> int:
         return 1
     from h3dgs_tpu_torch.config import OptimizationConfig
     from h3dgs_tpu_torch.scene.loader import load_view
-    from h3dgs_tpu_torch.train.step import batch_to_device, encode_view
+    from h3dgs_tpu_torch.scene.views import stage_view, staged_to_device
 
     cs.log(cs.card_line())
     cs.build_kernels()
@@ -152,8 +152,8 @@ def main() -> int:
         state, scene = rec["state"], rec["scene"]
         cams = scene.info.train_cameras[:a.views]
         for v, cam in enumerate(cams):
-            batch = batch_to_device(encode_view(load_view(cam, -1)),
-                                    cs.DEVICE)
+            batch = staged_to_device(stage_view(load_view(cam, -1), pin=True),
+                                     cs.DEVICE)
             _, k2 = cs.train_stage_times(state, batch, 0,
                                          OptimizationConfig(), reps=1)
             args, cot, h, w = k2[0], k2[5], k2[6], k2[7]

@@ -1,7 +1,8 @@
 """Shared helpers for the PyTorch port's parity tests, plus the port-wide
 guards: no module of ``h3dgs_tpu_torch`` (nor ``chip_smoke.py``) imports
-JAX or the JAX package, and the entry points refuse to run without CUDA
-unless a device is asked for.
+JAX or the JAX package, no base layer of the port imports a layer above
+it, and the entry points refuse to run without CUDA unless a device is
+asked for.
 
 Parity tests feed the same numpy inputs (made from a seed) to a JAX
 function and to its port on ``device="cpu"`` and compare the results.
@@ -180,6 +181,64 @@ def test_import_guard_catches(source, caught):
     """The guard's own cases: each way of reaching the JAX package is
     flagged, the port's own names are not."""
     assert bool(jax_references(source)) == caught, source
+
+
+# The port's base layers, and the layers above them that no base layer
+# may import.
+BASE_LAYERS = ("scene", "io", "ops", "model", "hierarchy", "preprocess")
+UPPER_LAYERS = ("train", "parallel", "viewer", "cli", "eval")
+
+
+def upward_imports(source: str, package: str, path: str = "<src>") -> list:
+    """Where ``source``, a module of the dotted package ``package``,
+    imports a module of one of the port's ``UPPER_LAYERS``, absolutely or
+    relatively, at any nesting level."""
+    bad = []
+    for node in ast.walk(ast.parse(source, path)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")
+                parts = parts[:len(parts) - node.level + 1]
+                base = ".".join(parts + ([base] if base else []))
+            names = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in names:
+            parts = name.split(".")
+            if parts[0] == "h3dgs_tpu_torch" and parts[1:2] and \
+                    parts[1] in UPPER_LAYERS:
+                bad.append(f"{path}:{node.lineno} imports {name}")
+                break
+    return bad
+
+
+@pytest.mark.parametrize("layer", BASE_LAYERS)
+def test_base_layer_imports_no_upper_layer(layer):
+    """No module of a base layer of the port imports ``train``,
+    ``parallel``, ``viewer``, ``cli`` or ``eval``."""
+    bad, n = [], 0
+    for root, _, names in os.walk(os.path.join(PORT_DIR, layer)):
+        package = os.path.relpath(root, REPO).replace(os.sep, ".")
+        for f in sorted(names):
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                with open(path) as fh:
+                    bad += upward_imports(fh.read(), package,
+                                          os.path.relpath(path, REPO))
+                n += 1
+    assert n > 0 and not bad, bad
+
+
+def test_layer_guard_catches():
+    """The layering guard's own case: a base layer's relative import of
+    the training step is flagged, one of its own package is not."""
+    assert upward_imports("from ..train.step import ViewBatch",
+                          "h3dgs_tpu_torch.scene")
+    assert not upward_imports("from .views import ViewBatch",
+                              "h3dgs_tpu_torch.scene")
 
 
 def test_entry_points_need_cuda_or_a_device(tmp_path, monkeypatch):

@@ -709,8 +709,9 @@ def test_preprocess_imgproc_on_card_matches_cpu():
                                   "progressive_cv2_440_rst_61x97.jpg"])
 def test_jpeg_views_reach_the_card(name):
     """The loader's views of committed JPEG fixtures (decoded by the
-    port's own decoder) reach the card equal to their CPU bytes, as the
-    training loop moves them (``encode_view`` + ``batch_to_device``)."""
+    port's own decoder) reach the card as the training loop moves them
+    (``stage_view`` in pinned memory, ``staged_to_device``), equal to the
+    wire format's view of them (``_wire``) made on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import os
@@ -718,7 +719,7 @@ def test_jpeg_views_reach_the_card(name):
     from h3dgs_tpu_torch.io.jpeg import read_jpeg
     from h3dgs_tpu_torch.scene.dataset import CameraInfo
     from h3dgs_tpu_torch.scene.loader import load_view
-    from h3dgs_tpu_torch.train.step import batch_to_device, encode_view
+    from h3dgs_tpu_torch.scene.views import stage_view, staged_to_device
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "torch_jpeg", name)
@@ -726,26 +727,49 @@ def test_jpeg_views_reach_the_card(name):
     info = CameraInfo(uid=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]),
                       fovx=1.0, fovy=1.0 * h / w, primx=0.5, primy=0.5,
                       width=w, height=h, image_path=path, image_name=name)
-    view = encode_view(load_view(info, -1))
-    cpu = batch_to_device(view, "cpu")
-    card = batch_to_device(view, "cuda")
+    view = load_view(info, -1)
+    card = staged_to_device(stage_view(view, pin=True), "cuda")
+    want = _wire(view, "cuda")
     torch.cuda.synchronize()
-    assert cpu.gt_image.shape == (3, h, w) and cpu.gt_image.max() > 0
+    assert want.gt_image.shape == (3, h, w) and want.gt_image.max() > 0
     for f in ("gt_image", "alpha_mask", "invdepth", "depth_mask"):
         assert getattr(card, f).device.type == "cuda"
-        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+        assert getattr(card, f).dtype == torch.float32, f
+        assert torch.equal(getattr(card, f), getattr(want, f)), f
+
+
+def _wire(view, device):
+    """The float32 view the steps receive for a host view, as the wire
+    format states it: images and masks through 8 bits (clip(x * 255 +
+    0.5) truncated) and inverse depth through f16 on the host, then
+    decoded on ``device`` (/ 255, to float32)."""
+    from h3dgs_tpu_torch.scene.views import ViewBatch
+
+    def eight(x):
+        q = np.clip(np.asarray(x) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        return torch.from_numpy(q).to(device).float() / 255
+
+    return ViewBatch(
+        camera=view.camera.to(device), gt_image=eight(view.gt_image),
+        alpha_mask=eight(view.alpha_mask),
+        invdepth=torch.from_numpy(np.asarray(view.invdepth, np.float16)
+                                  ).to(device).float(),
+        depth_mask=eight(view.depth_mask),
+        depth_reliable=torch.tensor(bool(view.depth_reliable),
+                                    device=device),
+        image_idx=torch.as_tensor(np.asarray(view.image_idx, np.int64),
+                                  device=device))
 
 
 @pytest.mark.cuda
 def test_staged_views_reach_the_card_without_sync():
-    """Views staged in the decode pool reach the card as today's route
-    moves them: a ``ViewStream`` over committed fixtures (the 1600x900
-    JPEG view with a mask and a depth map, a 257x129 one without either)
-    feeds the prefetcher on the card, and each device view equals
-    ``batch_to_device(encode_view(load_view(...)), "cuda")`` bit for bit.
-    In steady state ``next(prefetch)`` makes no synchronising CUDA call
-    (counted under ``torch.cuda.set_sync_debug_mode``), nor does it when a
-    plain iterator hands it the same views and it stages them itself. A
+    """Views staged in the decode pool reach the card decoded: a
+    ``ViewStream`` over committed fixtures (the 1600x900 JPEG view with
+    a mask and a depth map, a 257x129 one without either) feeds the
+    prefetcher on the card, and each device view equals the wire
+    format's view of ``load_view(...)`` made on the card (``_wire``) bit
+    for bit. In steady state ``next(prefetch)`` makes no synchronising
+    CUDA call (counted under ``torch.cuda.set_sync_debug_mode``). A
     record staged for the card is pinned: a pageable one would copy
     without a counted synchronising call, yet wait for the queue."""
     if not torch.cuda.is_available():
@@ -755,9 +779,8 @@ def test_staged_views_reach_the_card_without_sync():
 
     from h3dgs_tpu_torch.scene.dataset import CameraInfo
     from h3dgs_tpu_torch.scene.loader import ViewStream, load_view
+    from h3dgs_tpu_torch.scene.views import stage_view
     from h3dgs_tpu_torch.train.loop import BatchedPrefetcher
-    from h3dgs_tpu_torch.train.step import (batch_to_device, encode_view,
-                                            stage_view)
 
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
@@ -774,45 +797,32 @@ def test_staged_views_reach_the_card_without_sync():
                   "torch_png/c0_d8_37x41.png", "torch_png/c0_d16_37x41.png"),
              info("torch_jpeg/pil_420_q90_257x129.jpg")]
 
-    class Plain:
-        def __init__(self, stream):
-            self.stream = stream
-
-        def __next__(self):
-            return next(self.stream)
-
-    def syncs_and_views(staged):
-        stream = ViewStream(infos, num_workers=2, shuffle=False)
-        pf = BatchedPrefetcher(stream if staged else Plain(stream), 1,
-                               "cuda")
-        try:
-            views = [next(pf) for _ in range(3)]      # warm
-            torch.cuda.synchronize()
-            n = 0
-            for _ in range(4):
-                with warnings.catch_warnings(record=True) as seen:
-                    warnings.simplefilter("always")
-                    torch.cuda.set_sync_debug_mode("warn")
-                    try:
-                        views.append(next(pf))
-                    finally:
-                        torch.cuda.set_sync_debug_mode(0)
-                n += sum("called a synchronizing CUDA operation"
+    stream = ViewStream(infos, "cuda", num_workers=2, shuffle=False)
+    pf = BatchedPrefetcher(stream, 1, "cuda")
+    try:
+        views = [next(pf) for _ in range(3)]      # warm
+        torch.cuda.synchronize()
+        syncs = 0
+        for _ in range(4):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    views.append(next(pf))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs += sum("called a synchronizing CUDA operation"
                          in str(x.message) for x in seen)
-            torch.cuda.synchronize()
-        finally:
-            stream.close()
-        return n, views
+        torch.cuda.synchronize()
+    finally:
+        stream.close()
 
     assert stage_view(load_view(infos[1], -1), pin=True).record.is_pinned()
-    staged_syncs, views = syncs_and_views(True)
-    plain_syncs, plain_views = syncs_and_views(False)
-    assert staged_syncs == plain_syncs == 0, (staged_syncs, plain_syncs)
-    for k, (hosts, devs) in enumerate(views + plain_views):
-        i = k % len(views) % len(infos)
+    assert syncs == 0, syncs
+    for k, (hosts, devs) in enumerate(views):
+        i = k % len(infos)
         assert int(hosts[0].image_idx) == i
-        want = batch_to_device(encode_view(load_view(infos[i], -1,
-                                                     image_idx=i)), "cuda")
+        want = _wire(load_view(infos[i], -1, image_idx=i), "cuda")
         got = devs[0]
         assert (got.camera.height, got.camera.width) == (
             want.camera.height, want.camera.width)
@@ -820,11 +830,11 @@ def test_staged_views_reach_the_card_without_sync():
                   "depth_reliable", "image_idx"):
             a, b = getattr(got, f), getattr(want, f)
             assert a.device.type == "cuda" and a.dtype == b.dtype, f
-            assert torch.equal(a.cpu(), b.cpu()), f
+            assert torch.equal(a, b), f
         for f in ("view", "full_proj", "cam_center", "tanfovx", "tanfovy"):
             a, b = getattr(got.camera, f), getattr(want.camera, f)
             assert a.device.type == "cuda" and a.shape == b.shape, f
-            assert torch.equal(a.cpu(), b.cpu()), f
+            assert torch.equal(a, b), f
 
 
 @pytest.mark.cuda
@@ -843,7 +853,7 @@ def test_prefix_step_adds_no_sync(monkeypatch):
     from h3dgs_tpu_torch.ops import adam as adam_lib
     from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
     from h3dgs_tpu_torch.parallel.step import make_dp_train_step
-    from h3dgs_tpu_torch.train.step import ViewBatch
+    from h3dgs_tpu_torch.scene.views import ViewBatch
 
     rng = np.random.default_rng(7)
     n, cap, h, w = 2000, 8192, 96, 128

@@ -41,6 +41,7 @@ from h3dgs_tpu_torch.preprocess import chunk as tchunk
 from h3dgs_tpu_torch.preprocess import imgproc
 from h3dgs_tpu_torch.scene import dataset as tdataset
 from h3dgs_tpu_torch.scene import loader as tloader
+from h3dgs_tpu_torch.scene import views as tviews
 from h3dgs_tpu_torch.train import step as tstep
 
 from .test_torch_common import cut_progressive, t_
@@ -831,7 +832,7 @@ def _train_step_on_jpeg(tmp_path, progressive: bool) -> None:
     jinfo, tinfo = _infos(image, mask, 64, 48)
     jv = jloader.load_view(jinfo, 1, image_idx=1)
     tv = tloader.load_view(tinfo, 1, image_idx=1)
-    tb = tstep.batch_to_device(tstep.encode_view(tv), "cpu")
+    tb = tviews.staged_to_device(tviews.stage_view(tv, pin=False), "cpu")
     opt_kw = dict(iterations=100, densify_grad_threshold=1e9)
     j_step = jstep.make_train_step(JOptCfg(**opt_kw), XCFG)
     t_step = tstep.make_train_step(TOptCfg(**opt_kw), tras.RasterizeConfig())

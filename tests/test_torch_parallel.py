@@ -47,6 +47,7 @@ from h3dgs_tpu_torch.ops import adam as tadam
 from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig as TRasterCfg
 from h3dgs_tpu_torch.parallel import step as tpar
 from h3dgs_tpu_torch.scene import loader as tloader
+from h3dgs_tpu_torch.scene import views as tviews
 from h3dgs_tpu_torch.train import checkpoint as tckpt
 from h3dgs_tpu_torch.train import loop as tloop
 from h3dgs_tpu_torch.train import post_step as tpost
@@ -92,8 +93,8 @@ def view_batches(host: dict, cams):
     jcams = jax.tree.map(lambda *xs: jnp.stack(xs), *[c[0] for c in cams])
     jb = jstep.ViewBatch(camera=jcams,
                          **{k: jnp.asarray(v) for k, v in host.items()})
-    tb = [tstep.ViewBatch(camera=cams[i][1],
-                          **{k: t_(v[i]) for k, v in host.items()})
+    tb = [tviews.ViewBatch(camera=cams[i][1],
+                           **{k: t_(v[i]) for k, v in host.items()})
           for i in range(len(cams))]
     return jb, tb
 
@@ -433,17 +434,17 @@ def test_keep_fn_partitions_windows(monkeypatch):
     no overlap, across epoch reshuffles too (tests/test_multihost.py)."""
     n_views, v, n_proc = 7, 4, 2
     local = v // n_proc
-    monkeypatch.setattr(tloader, "load_view",
-                        lambda info, res, scale, tte, half, idx: idx)
+    monkeypatch.setattr(tloader, "_decode",
+                        lambda info, res, tte, idx, pin: idx)
     loaded = {}
     for p in range(n_proc):
         keep = (lambda pos, _p=p: (pos % v) // local == _p)
-        vs = tloader.ViewStream([None] * n_views, num_workers=1,
+        vs = tloader.ViewStream([None] * n_views, "cpu", num_workers=1,
                                 prefetch=1, seed=0, keep_fn=keep)
         loaded[p] = [next(vs) for _ in range(8)]     # 4 windows
         vs.close()
-    vs = tloader.ViewStream([None] * n_views, num_workers=1, prefetch=1,
-                            seed=0)
+    vs = tloader.ViewStream([None] * n_views, "cpu", num_workers=1,
+                            prefetch=1, seed=0)
     seq = [next(vs) for _ in range(4 * v)]
     vs.close()
     for w in range(4):
@@ -615,7 +616,7 @@ def _prefix_store(last_row_alive: bool, n: int = 48, seed: int = 11):
     for i, a in enumerate(np.linspace(0, np.pi, n_views, endpoint=False)):
         cam = camera_pair((3 * np.sin(a), -0.4, -3 * np.cos(a)), fovx=1.1,
                           width=w, height=h)[1]
-        views.append(tstep.ViewBatch(
+        views.append(tviews.ViewBatch(
             camera=cam, gt_image=t_(rng.random((3, h, w)) * alpha),
             alpha_mask=t_(alpha), invdepth=t_(0.3 * rng.random((1, h, w))),
             depth_mask=t_(alpha), depth_reliable=torch.tensor(True),

@@ -42,8 +42,8 @@ from h3dgs_tpu_torch.model import init as tinit
 from h3dgs_tpu_torch.model import state as tstate
 from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig as TRasterCfg
 from h3dgs_tpu_torch.parallel import step as tpar
+from h3dgs_tpu_torch.scene import views as tviews
 from h3dgs_tpu_torch.train import post_step as tpost
-from h3dgs_tpu_torch.train import step as tstep
 
 from .synthetic_scene import make_gaussian_scene, ring_cameras, \
     write_colmap_scene
@@ -147,8 +147,8 @@ def trajectory(tmp_path_factory):
         jc, tc = cams[i]
         return (jstep.ViewBatch(camera=jc, **{k: jnp.asarray(v)
                                               for k, v in host.items()}),
-                tstep.ViewBatch(camera=tc, **{k: t_(v)
-                                              for k, v in host.items()}))
+                tviews.ViewBatch(camera=tc, **{k: t_(v)
+                                               for k, v in host.items()}))
 
     # Non-zero moments going in, zero on the locked rows (so those must
     # come out bit-identical).
@@ -396,7 +396,7 @@ def test_train_post_cli_cpu(chunk, tmp_path, monkeypatch):
             o = step(state, opt, batch, nodes, boxes, amask, exp_rows,
                      limits, *sa)
             (view,), (limit,) = batch, limits
-            center = tstep.decode_view(view).camera.cam_center
+            center = view.camera.cam_center
             in_cut = tcut.cut_mask(nodes, boxes, limit, center)[0]
             seen.append((int(o.cut_size), int(in_cut.sum()), state, o.state,
                          float(o.photo_loss)))

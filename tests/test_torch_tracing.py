@@ -22,8 +22,8 @@ from h3dgs_tpu_torch.ops import binning as tbinning
 from h3dgs_tpu_torch.ops import blend as tblend
 from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
 from h3dgs_tpu_torch.parallel import step as tdp
+from h3dgs_tpu_torch.scene import views as tviews
 from h3dgs_tpu_torch.train import loop as tloop
-from h3dgs_tpu_torch.train import step as tstep
 from h3dgs_tpu_torch.utils import profiling
 from h3dgs_tpu_torch.viewer import service as tservice
 
@@ -81,7 +81,7 @@ def _post_fn(hier):
     step = tdp.make_dp_post_step(TOptCfg(iterations=60), RasterizeConfig())
     _, cam = camera_pair((0.3, -0.2, -4.0), fovx=1.0, width=48, height=32)
     rng = np.random.default_rng(3)
-    view = tstep.ViewBatch(
+    view = tviews.ViewBatch(
         camera=cam, gt_image=t_(rng.random((3, 32, 48), np.float32)),
         alpha_mask=torch.ones(1, 32, 48), invdepth=torch.zeros(1, 32, 48),
         depth_mask=torch.zeros(1, 32, 48),
@@ -239,10 +239,10 @@ def _host_view():
 
 
 def test_view_spans_and_ready_counter(tmp_path):
-    """A plain iterator of host views, which the prefetcher stages on the
-    step's thread: ``view.next`` begins a step and holds the wait, the
-    encode and the copy; ``view.ready`` counts the views the stream had
-    decoded, ``view.staged`` adds 0 a view."""
+    """A stream of staged views with a ``ready`` method, as
+    ``ViewStream`` has: ``view.next`` begins a step and holds the wait
+    and the copy; ``view.ready`` counts the views the stream had
+    decoded."""
     host = _host_view()
 
     class Stream:
@@ -254,7 +254,7 @@ def test_view_spans_and_ready_counter(tmp_path):
 
         def __next__(self):
             self.n += 1
-            return host
+            return tviews.stage_view(host, pin=False)
 
     pf = tloop.BatchedPrefetcher(Stream(), 1, "cpu")
     with profiling.trace(str(tmp_path)):
@@ -262,32 +262,22 @@ def test_view_spans_and_ready_counter(tmp_path):
             next(pf)
     snap = profiling.snapshot()
     assert _edges(snap) == {(None, "view.next"), ("view.next", "view.wait"),
-                            ("view.next", "view.encode"),
                             ("view.next", "view.copy")}
     assert [s[4] for s in snap["spans"] if s[0] == "view.next"] == [0, 1, 2]
     assert snap["counters"]["view.ready"] == {"total": 1, "samples": 3}
-    assert snap["counters"]["view.staged"] == {"total": 0, "samples": 3}
 
 
 def test_staged_view_spans_and_counter(tmp_path):
-    """A stream that stages its views (as ``ViewStream.stage`` makes it):
-    the prefetcher asks it to stage for its device, and ``view.next``
-    holds only the wait and the copy, with no ``view.encode``;
-    ``view.staged`` adds 1 a view."""
+    """A stream of staged views without a ``ready`` method: ``view.next``
+    holds only the wait and the copy, ``view.staged`` adds 1 a view, and
+    ``view.ready`` is left out."""
     host = _host_view()
 
     class Stream:
-        device = None
-
-        def stage(self, device):
-            self.device = device
-
         def __next__(self):
-            return tstep.stage_view(host, pin=False)
+            return tviews.stage_view(host, pin=False)
 
-    stream = Stream()
-    pf = tloop.BatchedPrefetcher(stream, 1, "cpu")
-    assert stream.device == "cpu"
+    pf = tloop.BatchedPrefetcher(Stream(), 1, "cpu")
     with profiling.trace(str(tmp_path)):
         for _ in range(3):
             next(pf)

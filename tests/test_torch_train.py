@@ -33,6 +33,7 @@ from h3dgs_tpu_torch.ops import binning as tbin
 from h3dgs_tpu_torch.ops import blend as tblend
 from h3dgs_tpu_torch.ops import projection as tproj
 from h3dgs_tpu_torch.ops import rasterize as tras
+from h3dgs_tpu_torch.scene import views as tviews
 from h3dgs_tpu_torch.train import step as tstep
 
 from .synthetic_scene import make_gaussian_scene, ring_cameras
@@ -326,7 +327,7 @@ def _step_setup(seed=9, n_sky=6):
                 image_idx=np.asarray(1))
     jb = jstep.ViewBatch(camera=jc, **{k: jnp.asarray(v)
                                        for k, v in host.items()})
-    tb = tstep.ViewBatch(camera=tc, **{k: t_(v) for k, v in host.items()})
+    tb = tviews.ViewBatch(camera=tc, **{k: t_(v) for k, v in host.items()})
     return st, exposure, jb, tb
 
 
@@ -452,7 +453,7 @@ def test_five_step_trajectory():
             camera=cams[i], **{k: jnp.asarray(v) for k, v in host.items()}),
             jnp.asarray(float(it)), bg, jnp.asarray(1.0), jnp.asarray(4.0),
             0)
-        tout = t_step(t_st, to, te, teo, tstep.ViewBatch(
+        tout = t_step(t_st, to, te, teo, tviews.ViewBatch(
             camera=tcams[i], **{k: t_(v) for k, v in host.items()}),
             it, t_(np.zeros(3, np.float32)), 1.0, 4.0, 0)
         st, jo, je, jeo = (jout.state, jout.opt, jout.exposure,

@@ -1,10 +1,9 @@
-"""Views staged in the decode pool (``ViewStream.stage``,
-``train/step.stage_view`` / ``staged_to_device``): the prefetcher's
-device views from a ``ViewStream`` over committed fixtures, and from a
-plain iterator over the same views (staged on the step's thread), equal,
-bit for bit, what ``batch_to_device(encode_view(load_view(...)))`` gives,
-each view is one buffer on the device, and the counter ``view.staged``
-says which views arrived staged. Torch only."""
+"""A training view's wire format (``scene/views.py``: ``stage_view`` in
+the decode pool, ``staged_to_device``): a record decoded on the device
+equals the host view after the quantisation the format states, bit for
+bit; the prefetcher's device views from a ``ViewStream`` over committed
+fixtures equal that, each view's record is one buffer on the device, and
+the counter ``view.staged`` adds 1 a view. Torch only."""
 from __future__ import annotations
 
 import os
@@ -15,8 +14,8 @@ import torch
 
 from h3dgs_tpu_torch.scene import loader
 from h3dgs_tpu_torch.scene.dataset import CameraInfo
+from h3dgs_tpu_torch.scene import views
 from h3dgs_tpu_torch.train import loop as tloop
-from h3dgs_tpu_torch.train import step as tstep
 from h3dgs_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -61,7 +60,7 @@ def _info(name):
 
 def _leaves(b):
     cam = b.camera
-    return {**{k: getattr(cam, k) for k in tstep._CAMERA},
+    return {**{k: getattr(cam, k) for k in views._CAMERA},
             **{k: getattr(b, k) for k in ("gt_image", "alpha_mask",
                                           "invdepth", "depth_mask",
                                           "depth_reliable", "image_idx")}}
@@ -77,23 +76,11 @@ def assert_bit_equal(got, want):
         assert torch.equal(g[k], w[k]), k
 
 
-class _Plain:
-    """A stream that yields the ``ViewStream``'s views as host views: no
-    ``stage`` method, so the prefetcher stages them itself."""
-
-    def __init__(self, stream):
-        self.stream = stream
-
-    def __next__(self):
-        return next(self.stream)
-
-
-def _run(case, staged, tmp_path, steps=3):
+def _run(case, tmp_path, steps=3):
     names, per_step = CASES[case]
     infos = [_info(n) for n in names]
-    stream = loader.ViewStream(infos, num_workers=2, shuffle=False)
-    pf = tloop.BatchedPrefetcher(stream if staged else _Plain(stream),
-                                 per_step, "cpu")
+    stream = loader.ViewStream(infos, "cpu", num_workers=2, shuffle=False)
+    pf = tloop.BatchedPrefetcher(stream, per_step, "cpu")
     try:
         with profiling.trace(str(tmp_path)):
             got = [next(pf) for _ in range(steps)]
@@ -102,16 +89,42 @@ def _run(case, staged, tmp_path, steps=3):
     return infos, got, profiling.snapshot()
 
 
-@pytest.mark.parametrize("staged", [True, False], ids=["staged", "fallback"])
+def q8(x) -> np.ndarray:
+    """The wire format's 8 bits: clip(x * 255 + 0.5) truncated, in
+    ``x``'s own precision."""
+    return np.clip(np.asarray(x) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def wire(view):
+    """The float32 view the steps receive for a host view, as the wire
+    format states it: images and masks through 8 bits, inverse depth
+    through f16, the camera and ``image_idx`` as they are,
+    ``depth_reliable`` a bool."""
+    def eight(x):
+        return torch.from_numpy(q8(x)).float() / 255
+
+    return views.ViewBatch(
+        camera=view.camera, gt_image=eight(view.gt_image),
+        alpha_mask=eight(view.alpha_mask),
+        invdepth=torch.from_numpy(
+            np.asarray(view.invdepth, np.float16)).float(),
+        depth_mask=eight(view.depth_mask),
+        depth_reliable=torch.tensor(bool(view.depth_reliable)),
+        image_idx=torch.as_tensor(np.asarray(view.image_idx, np.int64)))
+
+
+DECODED = ("gt_image", "alpha_mask", "invdepth", "depth_mask")
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_prefetched_views_equal_todays_route(case, staged, tmp_path):
+def test_prefetched_views_equal_todays_route(case, tmp_path):
     """Three steps of the prefetcher over a ``ViewStream`` (shuffle off,
     so view k of the stream is ``infos[k % n]``): each step's host views
-    are the loader's, and its device views equal ``batch_to_device(
-    encode_view(load_view(...)), "cpu")`` bit for bit, leaf by leaf,
-    whether the stream or the prefetcher staged them. Each view's leaves
-    share one buffer."""
-    infos, got, snap = _run(case, staged, tmp_path)
+    are the loader's, and its device views are the wire format's float32
+    views of them (``wire``), bit for bit, leaf by leaf. The leaves the
+    device does not decode share one buffer, the view's copied
+    record."""
+    infos, got, snap = _run(case, tmp_path)
     per_step = CASES[case][1]
     k = 0
     for hosts, devs in got:
@@ -121,27 +134,25 @@ def test_prefetched_views_equal_todays_route(case, staged, tmp_path):
             view = loader.load_view(infos[i], -1, image_idx=i)
             assert int(host.image_idx) == i
             np.testing.assert_array_equal(host.gt_image, view.gt_image)
-            assert_bit_equal(dev, tstep.batch_to_device(
-                tstep.encode_view(view), "cpu"))
-            leaves = _leaves(dev).values()
-            ptrs = {t.untyped_storage().data_ptr() for t in leaves}
+            assert_bit_equal(dev, wire(view))
+            leaves = _leaves(dev)
+            ptrs = {t.untyped_storage().data_ptr() for k_, t in
+                    leaves.items() if k_ not in DECODED}
             assert len(ptrs) == 1
             k += 1
     # The prefetcher runs a step ahead: the three calls launched steps
     # 2-4, whose views the counter saw.
     n = 3 * per_step
-    assert snap["counters"]["view.staged"] == {"total": n if staged else 0,
-                                               "samples": n}
-    names = {s[0] for s in snap["spans"]}
-    assert ("view.encode" in names) != staged
+    assert snap["counters"]["view.staged"] == {"total": n, "samples": n}
+    assert "view.encode" not in {s[0] for s in snap["spans"]}
 
 
 @pytest.mark.parametrize("name", list(VIEWS))
 def test_stage_view_record(name):
     """``stage_view`` alone: every leaf sits at a multiple of 256 bytes
     in one uint8 record sized from the view's own shape, unpinned here
-    (no card), and ``staged_to_device`` of it on the CPU equals today's
-    route."""
+    (no card), and ``staged_to_device`` of it on the CPU is the host view
+    after the wire format's quantisation (``wire``), bit for bit."""
     view = loader.load_view(_info(name), -1, image_idx=5)
     # What each fixture stands for.
     masked = not np.all(view.alpha_mask == 1.0)
@@ -149,7 +160,7 @@ def test_stage_view_record(name):
     assert bool(view.depth_reliable) == (name in ("mask", "other_size"))
     assert bool(view.invdepth.any()) == (name != "no_depth")
     assert bool(view.depth_mask.any()) == bool(view.depth_reliable)
-    staged = tstep.stage_view(view, pin=False)
+    staged = views.stage_view(view, pin=False)
     assert staged.host is view and staged.record.dtype == torch.uint8
     assert not staged.record.is_pinned()
     ends = []
@@ -160,6 +171,4 @@ def test_stage_view_record(name):
     h, w = view.camera.height, view.camera.width
     assert dict((k, s) for k, _, s, _ in staged.fields)["gt_image"] == \
         (3, h, w)
-    assert_bit_equal(tstep.staged_to_device(staged, "cpu"),
-                     tstep.batch_to_device(tstep.encode_view(view), "cpu"))
-
+    assert_bit_equal(views.staged_to_device(staged, "cpu"), wire(view))
