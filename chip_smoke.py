@@ -190,6 +190,26 @@ K2_EARLIER_MS = 5.4961
 # the blend redesign's final run on the same card and limit).
 K3_EARLIER_MS = 0.1834
 
+# K4, the projection: bytes a row at SH degree 3 (csrc/project.cu's
+# note): the forward reads 236 and writes 41, the backward reads 268 and
+# writes 232. Shapes: the flat step's rows below the store's mark in the
+# benchmark's train_chunk (about 1.10M of 8.1M), and a serving cut of the
+# two-chunk hierarchy (about 2M rows).
+PROJ_FWD_BYTES = 236 + 41
+PROJ_BWD_BYTES = 268 + 232
+PROJ_STEP_ROWS = 1_100_000
+PROJ_SERVE_ROWS = 2_000_000
+# The kernel's conic against the plain version's on the card, each
+# element: the plain version's quaternion norm is a torch.sum, whose
+# order of additions the kernel follows as the card's torch takes it
+# (another order moves ill-conditioned rows' conics by up to 7e-4); the
+# other outputs are held equal. Gradients: the
+# kernel's closed form against autograd of the plain version, both
+# float32: max |d| within PROJ_GRAD_TOL_REL of max |g| and cosine at least
+# BWD_MIN_COSINE.
+PROJ_CONIC_REL = 1e-4
+PROJ_GRAD_TOL_REL = 1e-3
+
 # Training chunk.
 TRAIN_POINTS = 1_000_000
 TRAIN_VIEWS = 24
@@ -1556,6 +1576,110 @@ def check_ssim(pred, target, launches):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "earlier_ms": K3_EARLIER_MS,
             "ms_1080p": big_ms}
+
+
+def _projection_rows(n: int, seed: int):
+    """n seeded rows at SH degree 3 in front of a 1600x900 camera, the
+    camera on the card as a training view's is."""
+    from h3dgs_tpu_torch.scene.camera import look_at_camera
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def uni(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device=DEVICE)
+
+    rows = [uni((n, 3), -3.0, 3.0), torch.exp(uni((n, 3), -5.0, -2.0)),
+            torch.randn((n, 4), generator=gen, device=DEVICE),
+            uni((n,), 0.0, 1.0),
+            0.3 * torch.randn((n, 16, 3), generator=gen, device=DEVICE)]
+    cam = look_at_camera(eye=(0.3, -0.2, -6.0), target=(0, 0, 0), fovx=1.1,
+                         width=TRAIN_W, height=TRAIN_H).to(DEVICE)
+    return rows, cam
+
+
+def check_project(launches_fwd: int, launches_bwd: int):
+    """K4 against the plain projection at the flat step's shape (forward
+    and backward through autograd, K2's gradient rows as the cotangents
+    of means2d, conic and rgb) and at serving's (forward): every output
+    equal but the conic (within PROJ_CONIC_REL of each element), the
+    gradients within PROJ_GRAD_TOL_REL; times against the bytes' bound
+    and the plain version's."""
+    from h3dgs_tpu_torch.ops import projection as proj
+
+    out = {}
+    for n, what in ((PROJ_STEP_ROWS, "step"), (PROJ_SERVE_ROWS, "serve")):
+        rows, cam = _projection_rows(n, 1)
+        got = proj.project_gaussians(*rows, cam, 3)
+        want = proj.project_plain(*rows, cam, 3)
+        for name in ("means2d", "rgb", "depth", "radius", "valid"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        conic_rel = float(((got.conic - want.conic).abs()
+                           / want.conic.abs().clamp_min(1e-30)).max())
+        assert conic_rel <= PROJ_CONIC_REL, conic_rel
+        fwd_ms = time_ms(lambda: proj.project_gaussians(*rows, cam, 3), 50)
+        plain_ms = time_ms(lambda: proj.project_plain(*rows, cam, 3), 5)
+        bound = n * PROJ_FWD_BYTES / PEAK_BYTES * 1e3
+        out[what] = {"rows": n, "fwd_ms": fwd_ms, "plain_fwd_ms": plain_ms,
+                     "fwd_bound_ms": bound, "conic_rel": conic_rel}
+        log(f"project_fwd at {n} rows (SH 3, {what}): kernel {fwd_ms:.4f} "
+            f"ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes, "
+            f"{n * PROJ_FWD_BYTES / 1e9:.3f} GB); outputs equal but the "
+            f"conic, within {conic_rel:.2e} of each element")
+        if what != "step":
+            continue
+        gen = torch.Generator(device=DEVICE).manual_seed(2)
+        k2_rows = torch.randn((n, 12), generator=gen, device=DEVICE)
+        g_depth = torch.randn((n,), generator=gen, device=DEVICE)
+        cots = [k2_rows[:, 0:2], k2_rows[:, 4:7], k2_rows[:, 8:11], g_depth]
+
+        def fwd_bwd(fn, leaves):
+            o = fn(*leaves, cam, 3)
+            torch.autograd.backward([o.means2d, o.conic, o.rgb, o.depth],
+                                    cots)
+
+        grads = []
+        for fn in (proj.project_gaussians, proj.project_plain):
+            leaves = [t.clone().requires_grad_(True) for t in rows]
+            fwd_bwd(fn, leaves)
+            grads.append([leaves[i].grad for i in (0, 1, 2, 4)])
+        worst = 0.0
+        for name, g, w in zip(("means3d", "scales", "quats", "shs"),
+                              *grads):
+            rel, cos, _ = _close_grads(g, w)
+            worst = max(worst, rel)
+            assert rel <= PROJ_GRAD_TOL_REL and cos >= BWD_MIN_COSINE, \
+                (name, rel, cos)
+        leaves = [t.clone().requires_grad_(True) for t in rows]
+        both_ms = time_ms(lambda: fwd_bwd(proj.project_gaussians, leaves),
+                          20)
+        plain_both_ms = time_ms(lambda: fwd_bwd(proj.project_plain, leaves),
+                                3)
+        camt = proj._camera_args(cam, DEVICE)
+        bwd_ms = time_ms(lambda: proj._launch_bwd(
+            *rows[:3], rows[4], camt, TRAIN_W, TRAIN_H, 3, 1.0, *cots), 50)
+        bwd_bound = n * PROJ_BWD_BYTES / PEAK_BYTES * 1e3
+        out[what].update(bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound,
+                         fwd_bwd_ms=both_ms, plain_fwd_bwd_ms=plain_both_ms,
+                         grad_rel=worst)
+        log(f"project_bwd at {n} rows (SH 3): kernel {bwd_ms:.4f} ms, bound "
+            f"{bwd_bound:.4f} ms (bytes, {n * PROJ_BWD_BYTES / 1e9:.3f} GB); "
+            f"forward + backward through autograd {both_ms:.4f} ms, plain "
+            f"{plain_both_ms:.3f} ms; gradients within {worst:.2e} of max "
+            f"|g| of autograd's")
+        del leaves, grads, k2_rows, cots
+    step = out["step"]
+    return {"name": "project", "route": "cuda",
+            "source": "h3dgs_tpu_torch/csrc/project.cu", "replaces": None,
+            "launches": launches_fwd, "launches_bwd": launches_bwd,
+            "max_abs_err": max(step["conic_rel"], step["grad_rel"]),
+            "ms": step["fwd_ms"] + step["bwd_ms"],
+            "plain_ms": step["plain_fwd_bwd_ms"],
+            "bound_ms": step["fwd_bound_ms"] + step["bwd_bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "earlier_ms": None,
+            "serve_fwd_ms": out["serve"]["fwd_ms"],
+            "serve_plain_fwd_ms": out["serve"]["plain_fwd_ms"],
+            "serve_fwd_bound_ms": out["serve"]["fwd_bound_ms"]}
 
 
 def counted(fn, *args, **kw):
@@ -3790,13 +3914,16 @@ def main() -> int:
                                   + eval_frames + 1), total
     assert total["blend_bwd"] >= views, total
     assert total["ssim"] >= fused_views, total
+    assert total["project_fwd"] >= total["blend_fwd"], total
+    assert total["project_bwd"] >= total["blend_bwd"], total
     for name, n in total.items():
         assert n > 0, f"kernel {name} was not launched on the main paths"
 
     # --- kernels against their plain versions (not counted) ---
     k1_row["launches"] = total["blend_fwd"]
     rows = [k1_row, check_blend_bwd(k2_inputs, total["blend_bwd"]),
-            check_ssim(k2_inputs[8], k2_inputs[9], total["ssim"])]
+            check_ssim(k2_inputs[8], k2_inputs[9], total["ssim"]),
+            check_project(total["project_fwd"], total["project_bwd"])]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"peak device memory allocated: {peak_gb:.2f} GB")
 

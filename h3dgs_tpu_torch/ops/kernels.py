@@ -9,8 +9,10 @@ Nothing is built when a module is imported: the CPU tests import every
 module on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts each kernel's launches; a wrapper adds one where it
-launches its kernel and nowhere else. ``chip_smoke.py`` resets and reads
-the counts around the main path to show that the path ran the kernels.
+launches its kernel and nowhere else. A library may hold more than one
+kernel (``project`` holds ``project_fwd`` and ``project_bwd``).
+``chip_smoke.py`` resets and reads the counts around the main path to show
+that the path ran the kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ SOURCES: Dict[str, str] = {
     "blend_fwd": "blend_fwd.cu",
     "blend_bwd": "blend_bwd.cu",
     "ssim": "ssim.cu",
+    "project": "project.cu",
 }
 # Headers a source includes (csrc/): part of its library's hash.
 HEADERS: Dict[str, tuple] = {
@@ -40,8 +43,13 @@ HEADERS: Dict[str, tuple] = {
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Flags of one library beside NVCC_FLAGS (part of its hash): the
+# projection rounds every product and sum on its own, as torch's
+# elementwise ops do, so no multiply-add is contracted.
+EXTRA_FLAGS: Dict[str, tuple] = {"project": ("-fmad=false",)}
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "blend_fwd", "blend_bwd", "ssim", "project_fwd", "project_bwd")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -65,7 +73,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(
+        " ".join(NVCC_FLAGS + list(EXTRA_FLAGS.get(name, ()))).encode())
     for fname in (SOURCES[name],) + HEADERS.get(name, ()):
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             digest.update(f.read())
@@ -86,8 +95,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, SOURCES[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+               tmp, os.path.join(CSRC_DIR, SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())

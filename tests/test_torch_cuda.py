@@ -8,17 +8,26 @@ Each kernel is held against its plain PyTorch version on the same inputs.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from h3dgs_tpu_torch.ops import blend, kernels
+from h3dgs_tpu_torch.ops import blend, kernels, projection
 from h3dgs_tpu_torch.ops.binning import bin_gaussians
 from h3dgs_tpu_torch.ops.projection import project_gaussians
 from h3dgs_tpu_torch.ops.rasterize import blend_args
 from h3dgs_tpu_torch.scene.camera import look_at_camera
 
+from .torch_projection_cases import as_tensors, projection_case
+
 torch.set_num_threads(2)
+
+# The projection kernels against the plain version on the card (the tests
+# below say why each is what it is).
+PROJ_CONIC_REL = 1e-4
+PROJ_GRAD_FLOOR = 1e-6
 
 
 def _blend_inputs(n, seed, width, height, opacity_lo):
@@ -490,6 +499,262 @@ def test_pack_prepass_and_occupancy():
         assert blocks >= 1 and threads == 256
 
 
+# ------------------------------------------------------------ projection ---
+
+PROJ_CASES = [(d, False, 1.0) for d in range(5)] + [(3, True, 1.0),
+                                                    (2, False, 0.7),
+                                                    (4, False, 1.3)]
+
+
+def _proj_args(degree, seed, precomp, n=3000):
+    """A projection case on the card: the rows of ``projection_case`` (shs
+    with one coefficient beyond the degree, passed as a row-strided
+    slice), the camera, given colours or None."""
+    arrays, cam = projection_case(degree, seed, n, extra_k=1)
+    t = as_tensors(arrays, device="cuda")
+    k = (degree + 1) ** 2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    colors = (torch.rand((n, 3), generator=gen, device="cuda")
+              if precomp else None)
+    return t[:4] + [t[4][:, :k]], cam, colors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,precomp,mod", PROJ_CASES)
+def test_projection_kernel_matches_plain(degree, precomp, mod):
+    """``project_fwd`` (one launch) against ``project_plain`` on the same
+    card tensors, over rows behind the near plane, past the tan clamp,
+    with det <= 0 and with a negative SH colour (each counted present):
+    every output equal but the conic, which is held within PROJ_CONIC_REL
+    of each element: the plain version's quaternion norm is a torch.sum,
+    whose order of additions the kernel follows as the card's torch
+    takes it, (0 + 2) + (1 + 3), and another order moves the conic of
+    ill-conditioned rows by up to 7e-4 of itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    args, cam, colors = _proj_args(degree, 20 + degree, precomp)
+    before = kernels.LAUNCHES["project_fwd"]
+    got = project_gaussians(*args, cam, degree, mod, colors_precomp=colors)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["project_fwd"] == before + 1
+    want = projection.project_plain(*args, cam, degree, mod,
+                                    colors_precomp=colors)
+    assert torch.equal(got.radius, want.radius)
+    assert torch.equal(got.valid, want.valid)
+    assert got.opacity is args[3]
+    if precomp:
+        assert got.rgb is colors
+    for name in ("means2d", "rgb", "depth"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    d = (got.conic - want.conic).abs()
+    assert bool((d <= PROJ_CONIC_REL * want.conic.abs()).all()), \
+        float((d / want.conic.abs().clamp_min(1e-30)).max())
+    with torch.no_grad():
+        g = projection._geometry(*args[:3], cam.to("cuda"), mod)
+        dirs = projection._view_dirs(g, cam.to("cuda"))
+        raw = projection._eval_sh_components(
+            degree, args[4], *(x * dirs[4] for x in dirs[:3])) + 0.5
+    assert int((~g.det_ok).sum()) > 0 and int((g.depth < 0.2).sum()) > 0
+    assert int((g.tqx.abs() > g.limx).sum()) > 0
+    assert int((raw < 0).sum()) > 0
+
+
+def _grad_errors(got, ref, keep):
+    """(median and 99th percentile of the rows' max |got - ref| over their
+    largest |ref|, and max |got - ref| over the tensor's largest |ref|)
+    over the rows ``keep``."""
+    g, r = (x[keep].reshape(int(keep.sum()), -1) for x in (got, ref))
+    d = (g - r).abs().amax(dim=1)
+    rel = d / r.abs().amax(dim=1).clamp_min(1e-30)
+    return (float(rel.median()), float(rel.quantile(0.99)),
+            float(d.max()) / max(float(r.abs().max()), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,precomp,mod", PROJ_CASES)
+def test_projection_backward_kernel_matches_autograd(degree, precomp, mod):
+    """``project_bwd`` through autograd (one launch) against autograd of
+    ``project_plain`` on the same card tensors, each cotangent alone and
+    all four together. Both are held to autograd in float64 on the CPU
+    over the rows whose determinant is not mostly rounding (float64
+    det > 1e-3 a c): the kernel's errors are distributed like float32
+    autograd's, the median and 99th percentile of the rows' relative
+    error at most twice autograd's and the largest at most four times,
+    each plus PROJ_GRAD_FLOOR. (Row by row the two float32 routes round
+    differently where a row is ill-conditioned: thin splats' rotations,
+    rows at the near plane.) Where float32 det <= 0 both give zero scale
+    and quaternion gradients: the guard blocks the conic's path, the
+    only one to them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    args, cam, colors = _proj_args(degree, 30 + degree, precomp)
+    n = args[0].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(degree)
+    cots = [torch.randn(s, generator=gen, device="cuda")
+            for s in ((n, 2), (n, 3), (n, 3), (n,))]
+    full = [a.detach() for a in args]
+    leaves = {"kernel": [a.clone() for a in full],
+              "auto32": [a.clone() for a in full],
+              "ref64": [a.double().cpu() for a in full]}
+    with torch.no_grad():
+        g32 = projection._geometry(*full[:3], cam.to("cuda"), mod)
+        g64 = projection._geometry(*leaves["ref64"][:3], cam, mod)
+    keep = (g64.det > 1e-3 * g64.cov_a * g64.cov_c) & g32.det_ok.cpu()
+    blocked = ~g32.det_ok.cpu()
+    assert int(keep.sum()) > 0.7 * n and int(blocked.sum()) > 0
+    for only in [None, 0, 1, 2, 3]:
+        if precomp and only == 2:
+            continue            # given colours: rgb reaches no input here
+        use = [c if only in (None, i) else None for i, c in enumerate(cots)]
+        grads = {}
+        for route, lv in leaves.items():
+            lv = [t.requires_grad_(True) for t in lv]
+            to = (lambda t: t.double().cpu()) if route == "ref64" else (
+                lambda t: t)
+            fn = (project_gaussians if route == "kernel"
+                  else projection.project_plain)
+            before = kernels.LAUNCHES["project_bwd"]
+            out = fn(*lv, cam, degree, mod,
+                     colors_precomp=None if colors is None else to(colors))
+            loss = sum((o * to(c)).sum() for o, c in zip(
+                (out.means2d, out.conic, out.rgb, out.depth), use)
+                if c is not None)
+            got = torch.autograd.grad(loss, (lv[0], lv[1], lv[2], lv[4]),
+                                      allow_unused=True)
+            if route == "kernel":
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["project_bwd"] == before + 1
+            grads[route] = [None if x is None else x.double().cpu()
+                            for x in got]
+        for j, name in enumerate(("means3d", "scales", "quats", "shs")):
+            ref = grads["ref64"][j]
+            if ref is None:     # the kernel writes every gradient: zero
+                k = grads["kernel"][j]
+                assert k is None or not bool(k.any()), (only, name)
+                continue
+            kern, auto = (torch.zeros_like(ref) if grads[r][j] is None
+                          else grads[r][j] for r in ("kernel", "auto32"))
+            ek = _grad_errors(kern, ref, keep)
+            ea = _grad_errors(auto, ref, keep)
+            for what, a, b, f in zip(("median", "p99", "max"), ek, ea,
+                                     (2.0, 2.0, 4.0)):
+                assert a <= f * b + PROJ_GRAD_FLOOR, (only, name, what, a, b)
+            if name in ("scales", "quats"):
+                assert not bool(kern[blocked].any()), (only, name)
+                assert not bool(auto[blocked].any()), (only, name)
+
+
+@pytest.mark.cuda
+def test_projection_kernel_rejects_bad_inputs():
+    """The wrapper raises on a wrong device, dtype, shape or stride (the
+    kernels read rows with adjacent components at any row stride)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, cam, _ = _proj_args(2, 3, False, n=200)
+
+    def call(i, t, match):
+        bad = list(args)
+        bad[i] = t
+        with pytest.raises(ValueError, match=match):
+            project_gaussians(*bad, cam, 2)
+
+    call(0, args[0].cpu(), "means3d")
+    call(1, args[1].double(), "scales")
+    call(2, args[2][:, :3], "quats")
+    call(3, args[3][:100], "opacities")
+    call(0, args[0].t().contiguous().t(), "means3d")
+    call(4, args[4][:, :4], "shs")                  # too few coefficients
+    call(4, args[4].transpose(1, 2).contiguous().transpose(1, 2), "shs")
+    with pytest.raises(ValueError, match="camera.view"):
+        project_gaussians(*args, dataclasses.replace(
+            cam, view=cam.view.double()), 2)
+    with pytest.raises(ValueError, match="unsupported SH degree"):
+        project_gaussians(*args[:4], torch.zeros((200, 36, 3),
+                                                 device="cuda"), cam, 5)
+
+
+def _flat_step_case():
+    """A seeded 2,000-row state in 8,192 capacity rows on the card, the
+    flat dp step, and its view, exposure and background."""
+    from h3dgs_tpu_torch.config import OptimizationConfig
+    from h3dgs_tpu_torch.model import state as state_lib
+    from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
+    from h3dgs_tpu_torch.parallel.step import make_dp_train_step
+    from h3dgs_tpu_torch.scene.views import ViewBatch
+
+    rng = np.random.default_rng(7)
+    n, cap, h, w = 2000, 8192, 96, 128
+    quats = rng.normal(size=(n, 4))
+    opac = rng.uniform(0.2, 0.9, (n, 1))
+    st = state_lib.from_arrays(
+        rng.uniform(-1, 1, (n, 3)), rng.uniform(-0.6, 0.6, (n, 1, 3)),
+        rng.normal(0, 0.1, (n, 3, 3)), np.log(opac / (1 - opac)),
+        np.log(rng.uniform(0.02, 0.1, (n, 3))), quats, capacity=cap,
+        max_sh_degree=1, n_skybox=4, n_scaffold=4, device="cuda")
+    cam = look_at_camera(eye=(0.3, -0.2, -3.2), target=(0, 0, 0), fovx=1.0,
+                         width=w, height=h).to("cuda")
+    ones = torch.ones((1, h, w), device="cuda")
+    view = ViewBatch(
+        camera=cam, gt_image=torch.rand((3, h, w), device="cuda"),
+        alpha_mask=ones, invdepth=0.3 * ones, depth_mask=ones,
+        depth_reliable=torch.tensor(True, device="cuda"),
+        image_idx=torch.tensor(0, device="cuda"))
+    exposure = torch.eye(3, 4, device="cuda")[None]
+    step = make_dp_train_step(OptimizationConfig(iterations=100),
+                              RasterizeConfig())
+    return st, step, view, exposure, torch.zeros(3, device="cuda")
+
+
+def _ordinary_step_syncs(st, step, view, exposure, bg):
+    """Synchronising CUDA calls (counted under
+    ``torch.cuda.set_sync_debug_mode``) of an ordinary flat step: the
+    second step from ``st``."""
+    import warnings
+
+    from h3dgs_tpu_torch.ops import adam as adam_lib
+
+    out = step(st, adam_lib.init(st.trainable_dict()), exposure,
+               adam_lib.init({"exposure": exposure}), [view], 1, bg, 2.0,
+               3.0, 1)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(out.state, out.opt, out.exposure, out.exposure_opt, [view],
+                 2, bg, 2.0, 3.0, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(x.message)
+               for x in seen)
+
+
+# Synchronising calls of an ordinary flat step (11 of them Adam's); the
+# projection kernels' wrapper makes none.
+FLAT_STEP_SYNCS = 21
+
+
+@pytest.mark.cuda
+def test_flat_step_projects_in_two_launches():
+    """One flat step launches ``project_fwd`` once and ``project_bwd``
+    once (and K1 and K2 once each), and an ordinary step makes
+    FLAT_STEP_SYNCS synchronising calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from h3dgs_tpu_torch.ops import adam as adam_lib
+
+    st, step, view, exposure, bg = case = _flat_step_case()
+    kernels.reset_launches()
+    step(st, adam_lib.init(st.trainable_dict()), exposure,
+         adam_lib.init({"exposure": exposure}), [view], 1, bg, 2.0, 3.0, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"blend_fwd": 1, "blend_bwd": 1, "ssim": 0,
+                                "project_fwd": 1, "project_bwd": 1}, \
+        kernels.LAUNCHES
+    assert _ordinary_step_syncs(*case) == FLAT_STEP_SYNCS
+
+
 # ------------------------------------------------------------ evaluation ---
 
 @pytest.mark.cuda
@@ -646,7 +911,8 @@ def test_render_hierarchy_on_card(tmp_path, monkeypatch):
     card = render_hierarchy.main(argv + ["-m", str(tmp_path / "card")])
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"blend_fwd": 3 * 2, "blend_bwd": 0,
-                                "ssim": 0}
+                                "ssim": 0, "project_fwd": 3 * 2,
+                                "project_bwd": 0}
     cpu = render_hierarchy.main(argv + ["-m", str(tmp_path / "cpu"),
                                         "--device", "cpu"])
     for tau in (0.0, 30.0):
@@ -846,58 +1112,13 @@ def test_prefix_step_adds_no_sync(monkeypatch):
     on the first step after ``alive`` changed, and never again."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    import warnings
-
-    from h3dgs_tpu_torch.config import OptimizationConfig
     from h3dgs_tpu_torch.model import state as state_lib
-    from h3dgs_tpu_torch.ops import adam as adam_lib
-    from h3dgs_tpu_torch.ops.rasterize import RasterizeConfig
-    from h3dgs_tpu_torch.parallel.step import make_dp_train_step
-    from h3dgs_tpu_torch.scene.views import ViewBatch
 
-    rng = np.random.default_rng(7)
-    n, cap, h, w = 2000, 8192, 96, 128
-    quats = rng.normal(size=(n, 4))
-    opac = rng.uniform(0.2, 0.9, (n, 1))
-    st = state_lib.from_arrays(
-        rng.uniform(-1, 1, (n, 3)), rng.uniform(-0.6, 0.6, (n, 1, 3)),
-        rng.normal(0, 0.1, (n, 3, 3)), np.log(opac / (1 - opac)),
-        np.log(rng.uniform(0.02, 0.1, (n, 3))), quats, capacity=cap,
-        max_sh_degree=1, n_skybox=4, n_scaffold=4, device="cuda")
-    cam = look_at_camera(eye=(0.3, -0.2, -3.2), target=(0, 0, 0), fovx=1.0,
-                         width=w, height=h).to("cuda")
-    ones = torch.ones((1, h, w), device="cuda")
-    view = ViewBatch(
-        camera=cam, gt_image=torch.rand((3, h, w), device="cuda"),
-        alpha_mask=ones, invdepth=0.3 * ones, depth_mask=ones,
-        depth_reliable=torch.tensor(True, device="cuda"),
-        image_idx=torch.tensor(0, device="cuda"))
-    exposure = torch.eye(3, 4, device="cuda")[None]
-    step = make_dp_train_step(OptimizationConfig(iterations=100),
-                              RasterizeConfig())
-    bg = torch.zeros(3, device="cuda")
-
-    def ordinary_step_syncs():
-        out = step(st, adam_lib.init(st.trainable_dict()), exposure,
-                   adam_lib.init({"exposure": exposure}), [view], 1, bg,
-                   2.0, 3.0, 1)
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                step(out.state, out.opt, out.exposure, out.exposure_opt,
-                     [view], 2, bg, 2.0, 3.0, 1)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        return sum("called a synchronizing CUDA operation" in str(x.message)
-                   for x in seen)
-
-    assert st.high_water == 2048
-    prefix = ordinary_step_syncs()
+    case = _flat_step_case()
+    assert case[0].high_water == 2048
+    prefix = _ordinary_step_syncs(*case)
     with monkeypatch.context() as m:
         m.setattr(state_lib.GaussianState, "high_water",
                   property(lambda s: s.capacity))
-        full = ordinary_step_syncs()
+        full = _ordinary_step_syncs(*case)
     assert full > 0 and prefix <= full, (prefix, full)
